@@ -8,9 +8,8 @@ name and bandwidth (``core/kernels_math.py``) and computes
 
 straight from X, so the n×n matrix never exists.  Two backends share the
 arithmetic: the ``matfree_apply`` CUDA kernel (tensors on a CUDA device) and
-a chunked PyTorch loop (``stream_cols``), whose peak memory is
-O(chunk · m·d).  ``stream_cols_slabs`` of the reference is still to be
-ported (ROADMAP queue 1, item 6).
+a chunked PyTorch loop (``stream_cols``, or ``stream_cols_slabs`` for the
+engine's batches), whose peak memory is O(chunk · m·d).
 """
 from __future__ import annotations
 
@@ -55,6 +54,30 @@ def stream_cols(Xq: torch.Tensor, landmarks: torch.Tensor, coef: torch.Tensor,
                             coef_a)
 
     return _scan_row_chunks(Xq, chunk, _block)
+
+
+def stream_cols_slabs(Xq: torch.Tensor, landmarks: torch.Tensor,
+                      coef: torch.Tensor, kernel_fn, *,
+                      chunk: int | None = None) -> torch.Tensor:
+    """Multi-slab C = K(Xq, ·)·S accumulated slab by slab — the batched
+    engine's plain route: each slab's (chunk, d) kernel block is evaluated
+    at the narrow shape and folded into the (nq, d) sum, so the (nq, m·d)
+    slab of ``stream_cols`` never exists.  Returns (nq, d), accumulated in
+    float32 at least (float64 inputs stay float64)."""
+    m, d = coef.shape
+    acc_t = torch.promote_types(torch.float32,
+                                torch.promote_types(Xq.dtype, coef.dtype))
+    if chunk is None:
+        # the (chunk, d) kernel block is the transient peak, ~16 MiB
+        chunk = max(8, (4 * 1024 * 1024) // max(d, 1))
+    lmr = landmarks.reshape(m, d, landmarks.shape[-1])
+    cf = coef.to(acc_t)
+    acc = torch.zeros((Xq.shape[0], d), dtype=acc_t, device=Xq.device)
+    for lm_b, cf_b in zip(lmr, cf):
+        blk = _scan_row_chunks(Xq, chunk,
+                               lambda xb, lm_b=lm_b: kernel_fn(xb, lm_b).to(acc_t))
+        acc = acc + blk * cf_b[None, :]
+    return acc
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,7 +9,8 @@ through the ``matfree_apply`` kernel and W through the plain gather; the raw
 data path computes C through the plain ``stream_cols`` and W through the
 ``accum_apply_left`` kernel; a dense K goes through ``accum_sketch_both``.
 Kernels run for tensors on a CUDA device (``use_kernel=None``).  The
-adaptive fits are still to be ported (ROADMAP queue 1, item 8).
+adaptive fits grow (C, W) with the progressive engine
+(``apply.grow_sketch_both``) to an error target and solve with them.
 """
 from __future__ import annotations
 
@@ -207,6 +208,66 @@ def krr_sketched_fit_pcg(X, y: torch.Tensor, lam: float, sk: AccumSketch,
     C, W, X, kernel_fn, op = _matfree_pair(X, sk, kernel_fn, chunk, use_kernel)
     theta = _pcg_solve(C, W, y, lam, iters)
     return SketchedKRR(theta, sk, None, X, kernel_fn, C @ theta, op=op)
+
+
+# --------------------------------------------------------------------------- #
+# Adaptive (progressive-accumulation) variants
+# --------------------------------------------------------------------------- #
+
+def krr_sketched_fit_adaptive(
+        K, y: torch.Tensor, lam: float, seed: int, d: int, *,
+        tol: float = 1e-2, m_max: int = 32, probs=None, estimator=None,
+        check_every: int = 1, X_train: torch.Tensor | None = None,
+        kernel_fn: Callable | None = None, use_kernel: bool | None = None,
+        schedule: str = "doubling", scheme: str = "uniform",
+        scheme_lam: float | None = None, state=None) -> SketchedKRR:
+    """Sketched KRR with m chosen by the progressive engine: grow (C, W)
+    until the plug-in error estimate clears ``tol`` or ``m_max`` is reached,
+    then solve the Woodbury system with the pair already accumulated.
+
+    Callers give an error target, not m.  Growth runs on the doubling
+    schedule by default (O(log m) data passes, ``info["passes"]``); ``K`` is
+    dense or a ``KernelOperator``.  ``scheme_lam`` is the ridge at which the
+    leverage scheme estimates its scores (default 1e-3, apart from the fit's
+    λ).  ``seed`` and ``state`` are those of ``apply.grow_sketch_both``.
+    ``info`` holds the engine's m, m_max, err and passes and the solve's
+    health."""
+    op = A._operator(K)
+    sk, C, W, info = A.grow_sketch_both(
+        seed, K, d, m_max=m_max, tol=tol, probs=probs, estimator=estimator,
+        check_every=check_every, use_kernel=use_kernel, schedule=schedule,
+        scheme=scheme, scheme_lam=scheme_lam, state=state)
+    theta, fitted, health = _fit_from_C(C, W, y, lam)
+    info = {**info, **health}
+    if op is not None:
+        return SketchedKRR(theta, sk, None, op.X, op.kernel_fn, fitted,
+                           info=info, op=op)
+    return SketchedKRR(theta, sk, None, X_train, kernel_fn, fitted, info=info)
+
+
+def krr_sketched_fit_pcg_adaptive(
+        K, y: torch.Tensor, lam: float, seed: int, d: int, *,
+        tol: float = 1e-2, m_max: int = 32, iters: int = 30, probs=None,
+        estimator=None, check_every: int = 1,
+        X_train: torch.Tensor | None = None, kernel_fn: Callable | None = None,
+        use_kernel: bool | None = None, schedule: str = "doubling",
+        scheme: str = "uniform", scheme_lam: float | None = None,
+        state=None) -> SketchedKRR:
+    """Adaptive-m PCG: the engine grows (C, W) to the error target, then
+    preconditioned CG (``_pcg_solve``) reuses the pair; the d×d
+    preconditioner keeps its size while m grows.  Arguments as in
+    ``krr_sketched_fit_adaptive``."""
+    op = A._operator(K)
+    sk, C, W, info = A.grow_sketch_both(
+        seed, K, d, m_max=m_max, tol=tol, probs=probs, estimator=estimator,
+        check_every=check_every, use_kernel=use_kernel, schedule=schedule,
+        scheme=scheme, scheme_lam=scheme_lam, state=state)
+    theta = _pcg_solve(C, W, y, lam, iters)
+    if op is not None:
+        return SketchedKRR(theta, sk, None, op.X, op.kernel_fn, C @ theta,
+                           info=info, op=op)
+    return SketchedKRR(theta, sk, None, X_train, kernel_fn, C @ theta,
+                       info=info)
 
 
 def insample_error(f_a: torch.Tensor, f_b: torch.Tensor) -> torch.Tensor:

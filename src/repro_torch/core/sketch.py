@@ -25,7 +25,12 @@ import math
 import torch
 
 from repro_torch._util import resolve_device
-from repro_torch.core.schemes import validate_scheme
+from repro_torch.core.schemes import (
+    _rademacher,
+    poisson_inclusion,
+    poisson_pieces,
+    validate_scheme,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,34 +132,68 @@ def make_accum_sketch(
 
     ``probs=None`` means the uniform distribution (classical Nyström when
     m=1); ``signed=False`` drops the signs.  ``scheme="leverage"`` needs an
-    explicit ``probs``.  ``device`` defaults to ``"cuda"`` and raises on a
-    machine without a card."""
+    explicit ``probs``; ``scheme="poisson"`` draws Poisson slabs with
+    π = min(1, d·p) and stores π/d as the per-row probability, so the cached
+    coef is the Horvitz–Thompson r/√(m·π) (``core.schemes``).  ``device``
+    defaults to ``"cuda"`` and raises on a machine without a card."""
     device = resolve_device(device)
     validate_scheme(scheme)
+    gdev = generator.device
     if scheme == "poisson":
-        raise NotImplementedError(
-            "scheme='poisson' is not ported yet (ROADMAP queue 1, item 9)")
+        pi = poisson_inclusion(probs, n, d, dtype, gdev)
+        indices, signs = poisson_pieces(generator, pi, m, d, dtype=dtype,
+                                        signed=signed)
+        indices, signs = indices.to(device), signs.to(device)
+        probs_eff = (pi / d).to(device, dtype)
+        return AccumSketch(indices=indices, signs=signs, probs=probs_eff, n=n,
+                           coef_=_compute_coef(indices, signs, probs_eff),
+                           scheme=scheme)
     if scheme == "leverage" and probs is None:
         raise ValueError("scheme='leverage' needs an explicit probs vector in "
                          "the one-shot constructor")
-    gdev = generator.device
     if probs is None:
         indices = torch.randint(0, n, (m, d), generator=generator, device=gdev)
     else:
         p = _normalize_probs(probs, n, torch.float64, gdev)
         indices = torch.multinomial(p, m * d, replacement=True,
                                     generator=generator).reshape(m, d)
-    if signed:
-        bits = torch.randint(0, 2, (m, d), generator=generator, device=gdev)
-        signs = (2 * bits - 1).to(dtype)
-    else:
-        signs = torch.ones((m, d), dtype=dtype, device=gdev)
+    signs = (_rademacher(generator, (m, d), dtype) if signed
+             else torch.ones((m, d), dtype=dtype, device=gdev))
     indices = indices.to(device=device, dtype=torch.int32)
     signs = signs.to(device)
     probs = _normalize_probs(probs, n, dtype, device)
     return AccumSketch(indices=indices, signs=signs, probs=probs, n=n,
                        coef_=_compute_coef(indices, signs, probs),
                        scheme=scheme)
+
+
+def append_subsample(sk: AccumSketch, generator: torch.Generator, *,
+                     signed: bool = True) -> AccumSketch:
+    """Grow a sketch m → m+1 by drawing ONE new sub-sampling matrix from the
+    same distribution, on the generator's device: the survivors' coefficients
+    rescale by sqrt(m/(m+1)), S_{m+1} = sqrt(m/(m+1))·S_m + T_{m+1}.
+
+    The grown sketch is a fresh draw, not a prefix of a one-shot draw; use
+    ``AccumState`` and ``apply.accum_grow`` for a trajectory that replays one.
+    A ``"poisson"`` sketch appends a Poisson slab with the same π = d·probs;
+    other schemes draw with replacement from ``sk.probs``."""
+    gdev = generator.device
+    dt = sk.signs.dtype
+    if sk.scheme == "poisson":
+        pi = torch.clamp(sk.d * sk.probs, 1e-9, 1.0)   # probs stores π/d
+        idx_new, sgn_new = poisson_pieces(generator, pi, 1, sk.d, dtype=dt,
+                                          signed=signed)
+    else:
+        idx_new = torch.multinomial(sk.probs.to(gdev, torch.float64), sk.d,
+                                    replacement=True,
+                                    generator=generator)[None, :]
+        sgn_new = (_rademacher(generator, (1, sk.d), dt) if signed
+                   else torch.ones((1, sk.d), dtype=dt, device=gdev))
+    indices = torch.cat([sk.indices, idx_new.to(sk.device, torch.int32)])
+    signs = torch.cat([sk.signs, sgn_new.to(sk.device)])
+    return AccumSketch(indices=indices, signs=signs, probs=sk.probs, n=sk.n,
+                       coef_=_compute_coef(indices, signs, sk.probs),
+                       scheme=sk.scheme)
 
 
 def make_nystrom_sketch(generator: torch.Generator, n: int, d: int, probs=None,
@@ -173,3 +212,83 @@ def make_gaussian_sketch(generator: torch.Generator, n: int, d: int,
     S = torch.randn((n, d), generator=generator, dtype=dtype,
                     device=generator.device)
     return (S / d**0.5).to(device)
+
+
+# --------------------------------------------------------------------------- #
+# Progressive accumulation state
+# --------------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class AccumState:
+    """State of the progressive accumulation engine after ``m`` steps.
+
+    All ``m_max`` sub-sampling matrices are drawn up front (the draw of
+    ``make_accum_sketch`` at m_max, so growing to m_max replays it and a stop
+    at m < m_max keeps a prefix of it), and each step folds slab ``m`` into
+    the running, currently normalized
+
+        C = K S_m   (n, d) float32        W = S_mᵀ K S_m   (d, d) float32
+
+    in O(n·d).  ``err`` is the latest stopping estimate (+inf until first
+    evaluated).  ``pdraw`` keeps each entry's probability at draw time: the
+    leverage scheme refines ``probs`` while m grows, and accumulated slabs
+    keep the normalization they were drawn with.
+
+    The engine runs eagerly, so ``m`` is a Python int and ``err`` a Python
+    float (the reference carries both as device scalars through its loops);
+    the stopping test reads ``err`` on the host once per estimate."""
+
+    indices: torch.Tensor    # (m_max, d) int32 — rows ≥ m not yet accumulated
+    signs: torch.Tensor      # (m_max, d)
+    probs: torch.Tensor      # (n,) current sampling distribution
+    pdraw: torch.Tensor      # (m_max, d) per-entry probability at draw time
+    C: torch.Tensor          # (n, d) float32 running K S_m
+    W: torch.Tensor          # (d, d) float32 running Sᵀ K S_m
+    m: int                   # slabs folded in so far
+    err: float               # latest stopping-rule estimate
+    n: int                   # ambient dimension
+    scheme: str = "uniform"  # sampling scheme behind the draws
+
+    @property
+    def m_max(self) -> int:
+        """Number of pre-drawn slabs (upper bound on m)."""
+        return self.indices.shape[0]
+
+    @property
+    def d(self) -> int:
+        """Sketch dimension (columns of S)."""
+        return self.indices.shape[1]
+
+    def grow_batched(self, K, B: int, *, use_kernel: bool | None = None,
+                     donate: bool = False) -> "AccumState":
+        """Fold the next ``B`` pre-drawn slabs into (C, W) in one pass over
+        the data (``apply.accum_grow_batched``)."""
+        from repro_torch.core.apply import accum_grow_batched
+
+        return accum_grow_batched(K, self, B, use_kernel=use_kernel,
+                                  donate=donate)
+
+    def sketch(self) -> AccumSketch:
+        """The AccumSketch accumulated so far, normalized for m from the
+        at-draw probabilities ``pdraw``."""
+        m = self.m
+        if m == 0:
+            raise ValueError("no sub-sampling matrices accumulated yet")
+        coef = self.signs[:m] / torch.sqrt(self.d * m * self.pdraw[:m])
+        return AccumSketch(indices=self.indices[:m], signs=self.signs[:m],
+                           probs=self.probs, n=self.n, coef_=coef,
+                           scheme=self.scheme)
+
+    def masked_sketch(self) -> AccumSketch:
+        """The full (m_max, d) sketch with slabs ≥ m zero-masked and the
+        survivors normalized for m: every structural application is bilinear
+        in ``coef``, so it applies exactly like ``sketch()``.  Its ``.m``
+        reads m_max."""
+        mf = float(max(self.m, 1))
+        coef = self.signs.float() / torch.sqrt(self.d * mf * self.pdraw.float())
+        mask = torch.arange(self.m_max, device=self.indices.device)[:, None] < self.m
+        return AccumSketch(indices=self.indices,
+                           signs=torch.where(mask, self.signs, 0.0),
+                           probs=self.probs, n=self.n,
+                           coef_=torch.where(mask, coef, 0.0),
+                           scheme=self.scheme)

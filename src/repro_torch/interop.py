@@ -1,5 +1,6 @@
-"""Carry a sketch or a fitted model of the JAX package across as numpy
-arrays, so that the port can be held against the reference on the same draw.
+"""Carry a sketch, an engine state or a fitted model of the JAX package
+across as numpy arrays, so that the port can be held against the reference
+on the same draw.
 
 The port's own draws come from a ``torch.Generator`` and do not reproduce
 JAX's threefry bits; these builders take the reference's (indices, signs,
@@ -13,7 +14,7 @@ import torch
 from repro_torch._util import resolve_device
 from repro_torch.core.kernel_op import KernelOperator
 from repro_torch.core.krr import SketchedKRR
-from repro_torch.core.sketch import AccumSketch, _compute_coef
+from repro_torch.core.sketch import AccumSketch, AccumState, _compute_coef
 
 
 def sketch_from_numpy(indices, signs, probs, n: int, coef=None, *,
@@ -33,6 +34,22 @@ def sketch_from_numpy(indices, signs, probs, n: int, coef=None, *,
     cf = (_compute_coef(idx, sg, pr) if coef is None
           else torch.tensor(np.asarray(coef), device=device))
     return AccumSketch(indices=idx, signs=sg, probs=pr, n=n, coef_=cf)
+
+
+def state_from_numpy(indices, signs, probs, pdraw, n: int, *, device,
+                     scheme: str = "uniform") -> AccumState:
+    """The empty engine state (C and W zero, m = 0, err = +inf) for a
+    reference ``accum_init`` draw: its (m_max, d) indices and signs, its
+    (n,) probs and its (m_max, d) at-draw probabilities ``pdraw``."""
+    device = resolve_device(device)
+    sk = sketch_from_numpy(indices, signs, probs, n, device=device)
+    m_max, d = sk.indices.shape
+    return AccumState(
+        indices=sk.indices, signs=sk.signs, probs=sk.probs,
+        pdraw=torch.tensor(np.asarray(pdraw), device=device),
+        C=torch.zeros((n, d), dtype=torch.float32, device=device),
+        W=torch.zeros((d, d), dtype=torch.float32, device=device),
+        m=0, err=float("inf"), n=n, scheme=scheme)
 
 
 def krr_from_numpy(theta, indices, signs, probs, X_train, kernel: str,

@@ -1,6 +1,6 @@
 // Accumulation-sketch application kernels for Hopper (sm_90a).
 //
-// Three kernels replace the TPU's Pallas kernels in
+// Six kernels replace the TPU's Pallas kernels in
 // src/repro/kernels/accum_apply/kernel.py (AA below).  The sketch S has m
 // non-zeros per column, given by idx/coef of shape (m, d):
 //
@@ -229,33 +229,35 @@ cudaError_t launch_left(const void* M, const int* idx, const float* coef, float*
 }
 
 // --------------------------------------------------------------------------
-// accum_sketch_both — replaces AA:164 `accum_sketch_both`.
+// The column gather, shared by accum_sketch_both, accum_apply,
+// accum_step_slab and accum_grow_slabs:
 //
-// C = K S (R, d) and W = SᵀC (d, d), with W folded from the float32 C before
-// C is cast to K's dtype (AA:140-160, ref.py sketch_both_ref).
+//   G[r, j] = Σ_{i<m} coef[i, j] · K[r, idx[i, j]]          (float32)
+//   C32[r, j] = G[r, j]                       where C32 is given
+//   Cout[r, j] = a·Cin[r, j] + G[r, j]        where Cin is given, else G,
+//                                             in Cout's type, where given
+//
+// a·Cin is rounded before G is added (no fused multiply-add), the order of
+// the TPU kernels (AA:272, AA:344).  Cout may be Cin itself: each element is
+// read and written by one thread, so the rescale is safe in place.
 //
 // Bound on the H100: bytes.  It needs the R·m·d entries of K at the sampled
-// columns and writes C: 33.5 MB + 8.4 MB at R = 32768, m = 4, d = 64 in
-// float32.  The gathered entries lie in separate 32-byte sectors, so the
-// card moves up to 8 times the needed bytes of K.
+// columns and writes R·d outputs.  The gathered entries lie in separate
+// 32-byte sectors, so the card moves up to 8 times the needed bytes of K
+// (16 times in bfloat16).
 //
-// Design: two launches, no atomics.  (1) The gather kernel: a block takes 64
-// rows, stages idx/coef in shared memory, and a warp takes one row at a time
-// with its lanes along j, so the writes of C are coalesced; each lane sums
-// its m terms in order.  It writes C in float32 and, for bfloat16 K, its
-// bfloat16 cast in the same pass.  (2) The left kernel above on the float32
-// C gives W: it reads only the m·d gathered rows of C.  The TPU kernel fused
-// both steps into one grid sweep because its grid ran in order on one core
-// and could carry W in scratch; here the W step touches only m·d rows, so a
-// second small launch costs little and keeps the reduction deterministic.
+// Design: a block takes 64 rows and stages idx/coef in shared memory (where
+// they fit 48 KB); a warp takes one row at a time with its lanes along j, so
+// the reads of Cin and the writes are coalesced, and each lane sums its m
+// terms in order.  One pass, no reduction across threads or blocks.
 // --------------------------------------------------------------------------
 constexpr int kGatherRows = 64;
 
-template <typename T>
+template <typename T, typename TO>
 __global__ void sketch_gather_kernel(const T* __restrict__ K, const int* __restrict__ idx,
-                                     const float* __restrict__ coef, float* __restrict__ C32,
-                                     T* __restrict__ Cout, int R, int N, int m, int d,
-                                     int staged) {
+                                     const float* __restrict__ coef, const float* Cin, float a,
+                                     float* __restrict__ C32, TO* Cout, int R, int N, int m,
+                                     int d, int staged) {
   extern __shared__ int sbuf[];
   const int md = m * d;
   const int* I = idx;
@@ -283,24 +285,100 @@ __global__ void sketch_gather_kernel(const T* __restrict__ K, const int* __restr
         const float v = (unsigned)col < (unsigned)N ? to_f32(Kr[col]) : __int_as_float(0x7fc00000);
         acc += F[i * d + j] * v;
       }
-      C32[(size_t)r * d + j] = acc;
-      if (Cout != nullptr) store(Cout + (size_t)r * d + j, acc);
+      const size_t o = (size_t)r * d + j;
+      if (C32 != nullptr) C32[o] = acc;
+      if (Cout != nullptr)
+        store(Cout + o, Cin != nullptr ? __fadd_rn(__fmul_rn(a, Cin[o]), acc) : acc);
     }
   }
 }
 
+template <typename T, typename TO>
+cudaError_t launch_gather(const void* K, const int* idx, const float* coef, const float* Cin,
+                          float a, float* C32, TO* Cout, int R, int N, int m, int d,
+                          cudaStream_t stream) {
+  const size_t smem = (size_t)m * d * (sizeof(int) + sizeof(float));
+  const int staged = smem <= 48 * 1024;
+  const dim3 grid((R + kGatherRows - 1) / kGatherRows);
+  sketch_gather_kernel<T, TO><<<grid, dim3(32, 8), staged ? smem : 0, stream>>>(
+      static_cast<const T*>(K), idx, coef, Cin, a, C32, Cout, R, N, m, d, staged);
+  return cudaGetLastError();
+}
+
+// --------------------------------------------------------------------------
+// accum_sketch_both — replaces AA:164 `accum_sketch_both`.
+//
+// C = K S (R, d) and W = SᵀC (d, d), with W folded from the float32 C before
+// C is cast to K's dtype (AA:140-160, ref.py sketch_both_ref).
+//
+// Design: two launches, no atomics.  (1) The gather writes C in float32 and,
+// for bfloat16 K, its bfloat16 cast in the same pass.  (2) The left kernel
+// above on the float32 C gives W: it reads only the m·d gathered rows of C.
+// The TPU kernel fused both steps into one grid sweep because its grid ran
+// in order on one core and could carry W in scratch; here the W step touches
+// only m·d rows, so a second small launch costs little and keeps the
+// reduction deterministic.
+// --------------------------------------------------------------------------
 template <typename T>
 cudaError_t launch_both(const void* K, const int* idx, const float* coef, float* C32, void* Cout,
                         float* W, int R, int N, int m, int d, cudaStream_t stream) {
-  const size_t smem = (size_t)m * d * (sizeof(int) + sizeof(float));
-  const int staged = smem <= 48 * 1024;
-  const dim3 block(32, 8);
-  const dim3 grid((R + kGatherRows - 1) / kGatherRows);
-  sketch_gather_kernel<T><<<grid, block, staged ? smem : 0, stream>>>(
-      static_cast<const T*>(K), idx, coef, C32, static_cast<T*>(Cout), R, N, m, d, staged);
-  const cudaError_t e = cudaGetLastError();
+  const cudaError_t e = launch_gather<T, T>(K, idx, coef, nullptr, 0.0f, C32,
+                                            static_cast<T*>(Cout), R, N, m, d, stream);
   if (e != cudaSuccess) return e;
   return launch_left<float>(C32, idx, coef, W, R, d, m, d, stream);
+}
+
+// --------------------------------------------------------------------------
+// accum_apply — replaces AA:84 `accum_apply`.
+//
+// out = K S (R, d) for rectangular K (R, N), summed in float32 and cast once
+// to K's dtype.  One launch of the gather for any N: the TPU's chunk scan
+// over N (ops.py MAX_COLS) exists for its VMEM and has no counterpart here.
+// --------------------------------------------------------------------------
+template <typename T>
+cudaError_t launch_apply(const void* K, const int* idx, const float* coef, void* out, int R,
+                         int N, int m, int d, cudaStream_t stream) {
+  return launch_gather<T, T>(K, idx, coef, nullptr, 0.0f, nullptr, static_cast<T*>(out), R, N,
+                             m, d, stream);
+}
+
+// --------------------------------------------------------------------------
+// accum_step_slab — replaces AA:277 `accum_step_slab`.
+//
+// out = a·Cin + K·T̃ (R, d) float32 for one slab (idx/coef of shape (1, d)).
+// One launch of the gather with m = 1.  Bound on the H100: launch latency at
+// the path's R = 8192 (6.3 MB in all, 1.9 µs at 3.35 TB/s).
+// --------------------------------------------------------------------------
+template <typename T>
+cudaError_t launch_step(const void* K, const int* idx, const float* coef, const float* Cin,
+                        float a, float* out, int R, int N, int d, cudaStream_t stream) {
+  return launch_gather<T, float>(K, idx, coef, Cin, a, nullptr, out, R, N, 1, d, stream);
+}
+
+// --------------------------------------------------------------------------
+// accum_grow_slabs — replaces AA:370 `accum_grow_slabs`.
+//
+// For the B-slab block T (idx/coef of shape (B, d)) and G = K·T in float32:
+//   C_new = a·Cin + G (R, d) float32,  TᵀG (d, d),  TᵀC = TᵀCin (d, d).
+//
+// Design: three launches on one stream, no atomics.  (1) The left kernel on
+// Cin gives TᵀC first, so C_new may be written over Cin.  (2) The gather
+// writes C_new and G (float32 scratch, R·d): TᵀG needs G itself, because
+// C_new − a·Cin loses precision where a ≠ 0.  (3) The left kernel on G gives
+// TᵀG from its B·d gathered rows.  The TPU kernel folded both d×d pieces
+// into its one sweep, carried across a grid that ran in order; here each
+// piece is a small deterministic launch over B·d rows.  Bound: the gather's
+// bytes, 151 MB at R = N = 32768, d = 64, B = 16 in float32 (45 µs).
+// --------------------------------------------------------------------------
+template <typename T>
+cudaError_t launch_grow(const void* K, const int* idx, const float* coef, const float* Cin,
+                        float a, float* out, float* G32, float* TtG, float* TtC, int R, int N,
+                        int B, int d, cudaStream_t stream) {
+  cudaError_t e = launch_left<float>(Cin, idx, coef, TtC, R, d, B, d, stream);
+  if (e != cudaSuccess) return e;
+  e = launch_gather<T, float>(K, idx, coef, Cin, a, G32, out, R, N, B, d, stream);
+  if (e != cudaSuccess) return e;
+  return launch_left<float>(G32, idx, coef, TtG, R, d, B, d, stream);
 }
 
 }  // namespace
@@ -329,6 +407,29 @@ int repro_accum_sketch_both(const void* K, const int* idx, const float* coef, fl
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_both<__nv_bfloat16>(K, idx, coef, C32, Cout, W, R, N, m, d, s)
                  : launch_both<float>(K, idx, coef, C32, Cout, W, R, N, m, d, s);
+}
+
+int repro_accum_apply(const void* K, const int* idx, const float* coef, void* out, int R, int N,
+                      int m, int d, int is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_apply<__nv_bfloat16>(K, idx, coef, out, R, N, m, d, s)
+                 : launch_apply<float>(K, idx, coef, out, R, N, m, d, s);
+}
+
+int repro_accum_step_slab(const void* K, const int* idx, const float* coef, const float* Cin,
+                          float a, float* out, int R, int N, int d, int is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_step<__nv_bfloat16>(K, idx, coef, Cin, a, out, R, N, d, s)
+                 : launch_step<float>(K, idx, coef, Cin, a, out, R, N, d, s);
+}
+
+int repro_accum_grow_slabs(const void* K, const int* idx, const float* coef, const float* Cin,
+                           float a, float* out, float* G32, float* TtG, float* TtC, int R, int N,
+                           int B, int d, int is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_grow<__nv_bfloat16>(K, idx, coef, Cin, a, out, G32, TtG, TtC, R, N, B,
+                                              d, s)
+                 : launch_grow<float>(K, idx, coef, Cin, a, out, G32, TtG, TtC, R, N, B, d, s);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""Build, bind and launch the CUDA kernels in ``csrc/accum_apply.cu``.
+"""Build, bind and launch the six CUDA kernels in ``csrc/accum_apply.cu``.
 
 The source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 plain C-ABI shared library under ``<repo>/build/repro_torch/`` (the path
@@ -89,8 +89,12 @@ def _lib() -> ctypes.CDLL:
     lib.repro_matfree_apply.argtypes = [P, P, P, P, I, I, I, I, I, I, F, F, I, P]
     lib.repro_accum_apply_left.argtypes = [P, P, P, P, I, I, I, I, I, P]
     lib.repro_accum_sketch_both.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
+    lib.repro_accum_apply.argtypes = [P, P, P, P, I, I, I, I, I, P]
+    lib.repro_accum_step_slab.argtypes = [P, P, P, P, F, P, I, I, I, I, P]
+    lib.repro_accum_grow_slabs.argtypes = [P, P, P, P, F, P, P, P, P, I, I, I, I, I, P]
     for fn in (lib.repro_matfree_apply, lib.repro_accum_apply_left,
-               lib.repro_accum_sketch_both):
+               lib.repro_accum_sketch_both, lib.repro_accum_apply,
+               lib.repro_accum_step_slab, lib.repro_accum_grow_slabs):
         fn.restype = ctypes.c_int
     return lib
 
@@ -221,7 +225,95 @@ def accum_sketch_both(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor
     return C, W
 
 
-KERNELS = (matfree_apply, accum_apply_left, accum_sketch_both)
+def accum_apply(K: torch.Tensor, idx: torch.Tensor,
+                coef: torch.Tensor) -> torch.Tensor:
+    """K S on the card for K (R, N) float32 or bfloat16, idx (m, d) int32,
+    coef (m, d) float32.  Returns (R, d) in K's dtype, summed in float32.
+    Replaces AA:84; one launch for any N."""
+    dev = _cuda_device(K)
+    R, N = K.shape
+    m, d = idx.shape
+    _check("K", K, (R, N), _TYPES, dev)
+    _check("idx", idx, (m, d), (torch.int32,), dev)
+    _check("coef", coef, (m, d), (torch.float32,), dev)
+    out = torch.empty((R, d), dtype=K.dtype, device=dev)
+    if R == 0 or d == 0:
+        return out
+    _int32(R=R, N=N, md=m * d)
+    with torch.cuda.device(dev):
+        err = _lib().repro_accum_apply(
+            K.data_ptr(), idx.data_ptr(), coef.data_ptr(), out.data_ptr(), R, N,
+            m, d, int(K.dtype == torch.bfloat16), _stream(dev))
+    accum_apply.launches += 1
+    _raise_on(err, "accum_apply")
+    return out
+
+
+def accum_step_slab(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor,
+                    Cin: torch.Tensor, a: float) -> torch.Tensor:
+    """a·Cin + K·T̃ on the card for one slab: K (R, N) float32 or bfloat16,
+    idx (1, d) int32, coef (1, d) float32, Cin (R, d) float32, ``a`` by
+    value.  Returns (R, d) float32.  Replaces AA:277."""
+    dev = _cuda_device(K)
+    R, N = K.shape
+    d = idx.shape[1]
+    _check("K", K, (R, N), _TYPES, dev)
+    _check("idx", idx, (1, d), (torch.int32,), dev)
+    _check("coef", coef, (1, d), (torch.float32,), dev)
+    _check("Cin", Cin, (R, d), (torch.float32,), dev)
+    out = torch.empty((R, d), dtype=torch.float32, device=dev)
+    if R == 0 or d == 0:
+        return out
+    _int32(R=R, N=N, d=d)
+    with torch.cuda.device(dev):
+        err = _lib().repro_accum_step_slab(
+            K.data_ptr(), idx.data_ptr(), coef.data_ptr(), Cin.data_ptr(),
+            float(a), out.data_ptr(), R, N, d, int(K.dtype == torch.bfloat16),
+            _stream(dev))
+    accum_step_slab.launches += 1
+    _raise_on(err, "accum_step_slab")
+    return out
+
+
+def accum_grow_slabs(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor,
+                     Cin: torch.Tensor, a: float, *,
+                     out: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(C_new, TᵀG, TᵀC) on the card for the B-slab block T: K (R, N) float32
+    or bfloat16, idx (B, d) int32 with every index < R, coef (B, d) float32,
+    Cin (R, d) float32, ``a`` by value.  C_new = a·Cin + G with G = K·T, all
+    three float32.  ``out`` receives C_new and may be ``Cin`` itself: TᵀC is
+    read from Cin before anything is written.  Replaces AA:370."""
+    dev = _cuda_device(K)
+    R, N = K.shape
+    B, d = idx.shape
+    _check("K", K, (R, N), _TYPES, dev)
+    _check("idx", idx, (B, d), (torch.int32,), dev)
+    _check("coef", coef, (B, d), (torch.float32,), dev)
+    _check("Cin", Cin, (R, d), (torch.float32,), dev)
+    if out is None:
+        out = torch.empty((R, d), dtype=torch.float32, device=dev)
+    else:
+        _check("out", out, (R, d), (torch.float32,), dev)
+    TtG = torch.empty((d, d), dtype=torch.float32, device=dev)
+    TtC = torch.empty((d, d), dtype=torch.float32, device=dev)
+    if R == 0 or d == 0:
+        return out, TtG.zero_(), TtC.zero_()
+    G32 = torch.empty((R, d), dtype=torch.float32, device=dev)
+    _int32(R=R, N=N, Bd=B * d)
+    with torch.cuda.device(dev):
+        err = _lib().repro_accum_grow_slabs(
+            K.data_ptr(), idx.data_ptr(), coef.data_ptr(), Cin.data_ptr(),
+            float(a), out.data_ptr(), G32.data_ptr(), TtG.data_ptr(),
+            TtC.data_ptr(), R, N, B, d, int(K.dtype == torch.bfloat16),
+            _stream(dev))
+    accum_grow_slabs.launches += 1
+    _raise_on(err, "accum_grow_slabs")
+    return out, TtG, TtC
+
+
+KERNELS = (matfree_apply, accum_apply_left, accum_sketch_both, accum_apply,
+           accum_step_slab, accum_grow_slabs)
 
 
 def reset_launches() -> None:

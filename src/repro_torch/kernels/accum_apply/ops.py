@@ -15,6 +15,10 @@ from repro_torch.core.sketch import AccumSketch
 from repro_torch.kernels.accum_apply import kernel as K_
 from repro_torch.kernels.accum_apply import ref
 
+# the reference's per-chunk column count (repro ops.py:49): the single-slab
+# step takes the right-apply route above it, as the reference does
+MAX_COLS = 8192
+
 
 def _on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
@@ -59,3 +63,52 @@ def sketch_both_kernel(K: torch.Tensor, sk: AccumSketch
         return K_.accum_sketch_both(K.contiguous(), sk.indices.contiguous(),
                                     coef32)
     return ref.sketch_both_ref(K, sk.indices, coef32)
+
+
+def _apply_right(K: torch.Tensor, idx: torch.Tensor,
+                 coef32: torch.Tensor) -> torch.Tensor:
+    if _on_cuda(K):
+        return K_.accum_apply(K.contiguous(), idx.to(torch.int32).contiguous(),
+                              coef32)
+    return ref.accum_apply_ref(K, idx, coef32)
+
+
+def sketch_right_kernel(K: torch.Tensor, sk: AccumSketch) -> torch.Tensor:
+    """K S (R, d) for rectangular K (R, N), summed in float32 and returned in
+    K's dtype.  One launch for any N."""
+    return _apply_right(K, sk.indices, sk.coef.float().contiguous())
+
+
+def sketch_step_kernel(K: torch.Tensor, idx_row: torch.Tensor,
+                       coef_row: torch.Tensor, C: torch.Tensor,
+                       a: float) -> torch.Tensor:
+    """The single-slab step a·C + K·T̃ for the slab idx_row/coef_row (d,);
+    C (R, d) float32.
+
+    The reference's two routes are kept: K of at most ``MAX_COLS`` columns
+    takes one ``accum_step_slab`` launch; wider K forms G = K·T̃ in K's dtype
+    through the right apply and adds a·C outside the kernel, so that a
+    bfloat16 K rounds G where the reference does (repro ops.py:236-245)."""
+    coef32 = coef_row.float()[None, :].contiguous()
+    idx = idx_row.to(torch.int32)[None, :].contiguous()
+    if K.shape[1] > MAX_COLS:
+        return a * C + _apply_right(K, idx, coef32).to(C.dtype)
+    if _on_cuda(K):
+        return K_.accum_step_slab(K.contiguous(), idx, coef32, C.contiguous(), a)
+    return ref.accum_step_ref(K, idx, coef32, C, a)
+
+
+def accum_grow_kernel(K: torch.Tensor, idx_blk: torch.Tensor,
+                      coef_blk: torch.Tensor, C: torch.Tensor, a: float, *,
+                      out: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The batched step for the B-slab block idx_blk/coef_blk (B, d):
+    ``(C_new, TᵀG, TᵀC)`` with C_new = a·C + K·T, all float32, from one
+    sweep over K.  ``out`` receives C_new and may be ``C`` itself."""
+    coef32 = coef_blk.float().contiguous()
+    idx = idx_blk.to(torch.int32).contiguous()
+    if _on_cuda(K):
+        return K_.accum_grow_slabs(K.contiguous(), idx, coef32, C.contiguous(),
+                                   a, out=out)
+    C_new, TtG, TtC = ref.accum_grow_ref(K, idx, coef32, C, a)
+    return (C_new if out is None else out.copy_(C_new)), TtG, TtC

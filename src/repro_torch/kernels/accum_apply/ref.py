@@ -53,3 +53,27 @@ def sketch_both_ref(K: torch.Tensor, idx: torch.Tensor,
     to K's dtype.  Returns (C in K.dtype, W in float32)."""
     C32 = accum_apply_ref(K.float(), idx, coef)
     return C32.to(K.dtype), sketch_left_ref(idx, coef, C32)
+
+
+def accum_step_ref(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor,
+                   Cin: torch.Tensor, a: float) -> torch.Tensor:
+    """One progressive step a·Cin + K·T̃ for the slab idx/coef (1, d): the
+    float32 G plus the float32 rescaled Cin, cast to Cin's dtype (AA:263)."""
+    G = accum_apply_ref(K.float(), idx, coef)
+    return (a * Cin.float() + G).to(Cin.dtype)
+
+
+def accum_grow_ref(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor,
+                   Cin: torch.Tensor, a: float
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fold the B-slab block T (idx/coef of shape (B, d), coefficients at the
+    grown normalization) into the running C with survivor rescale ``a``:
+
+        C_new = a·Cin + G,   TᵀG = Tᵀ K T,   TᵀC = Tᵀ Cin,   G = K·T,
+
+    all three from float32 values; C_new is cast to Cin's dtype.  The caller
+    assembles W_new = a²W + a(TᵀC + TᵀCᵀ) + TᵀG."""
+    G = accum_apply_ref(K.float(), idx, coef)
+    C_new = a * Cin.float() + G
+    return (C_new.to(Cin.dtype), sketch_left_ref(idx, coef, G),
+            sketch_left_ref(idx, coef, Cin))

@@ -60,7 +60,13 @@ def test_kernel_launchers_refuse_cpu_tensors():
         KT.accum_apply_left(x, idx, coef)
     with pytest.raises(ValueError, match="CUDA tensors"):
         KT.accum_sketch_both(torch.zeros(8, 8), idx, coef)
-    assert [f.launches for f in KT.KERNELS] == [0, 0, 0]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        KT.accum_apply(torch.zeros(8, 8), idx, coef)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        KT.accum_step_slab(torch.zeros(8, 8), idx[:1], coef[:1], torch.zeros(8, 4), 0.5)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        KT.accum_grow_slabs(torch.zeros(8, 8), idx, coef, torch.zeros(8, 4), 0.5)
+    assert [f.launches for f in KT.KERNELS] == [0] * 6
 
 
 def test_no_exception_handling_around_launches():

@@ -102,8 +102,10 @@ def test_nystrom_unsigned_and_gaussian():
 
 def test_schemes():
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        ST.make_accum_sketch(g, 50, 4, 2, scheme="poisson", device="cpu")
+    skp = ST.make_accum_sketch(g, 50, 4, 2, scheme="poisson", device="cpu")
+    assert skp.scheme == "poisson" and skp.indices.shape == (2, 4)
+    # π/d is stored as the per-row probability: uniform π = d/n
+    np.testing.assert_allclose(skp.probs.numpy(), 1.0 / 50, rtol=1e-6)
     with pytest.raises(ValueError):
         ST.make_accum_sketch(g, 50, 4, 2, scheme="leverage", device="cpu")
     with pytest.raises(ValueError):
