@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit), the nvcc version,
-   and builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc``.
+   and builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
+   nvcc for each source, started together).
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and times both beside the kernel's bound:
    CUDA events around a run of back-to-back calls, and the device's own
    time for the same run from ``torch.profiler`` (see ``timed``).
-3. Runs the two main paths, each with every launch count set to 0 just
+3. Runs the three main paths, each with every launch count set to 0 just
    before it and read just after.  Sketched kernel ridge regression, fit
    and predict:
    (a) quickstart §1 (n=2000, d=40): Nyström m=1 and accumulation m=8
@@ -23,6 +24,15 @@
    (g) the unit schedule on a dense K at n = 8192;
    (h) adaptive KRR on the operator at n = 2^21;
    (i) spectral clustering of planted blobs at n = 32768, fixed m and tol.
+   Serving minitron-8b at full width (bfloat16 weights from a seed):
+   (j) batch 4, an 8192-token prompt, 64 greedy tokens, with the exact and
+       the sketched cache (d_slots 1024, m_r 2): prefill time, decode
+       tokens/s, cache bytes, and 32 × 63 landmark_attention launches;
+   (k) the sketched prefill ≡ the sequential fold bitwise (bfloat16 and
+       float32 caches), sketched ≡ exact decode with identity slots
+       (teacher-forced logits), and a killed generate resumed bitwise;
+   (l) accum_attention at B·H = 32, S = 32768, d = 1024, m = 8: the kernel
+       route against the plain one.
 4. Prints one ``{"kernels": [...]}`` line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before the last line is printed.  Without a CUDA device it exits 2.
@@ -33,12 +43,15 @@ n = 2^21), so an absolute tolerance alone would measure their magnitude.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -58,8 +71,18 @@ SEED = 0           # the engine's seed in phases (e)-(i)
 # batch size of the doubling ladder is driven
 TOL_F = TOL_G = TOL_H = 1e-4
 
+# the serving path: minitron-8b's full width, batch, prompt and new tokens;
+# the prompt of the identity-slot check (max_len ≤ d_slots) and its tokens;
+# accum_attention's sequence length and heads
+ARCH, BATCH, PROMPT, NEW = "minitron-8b", 4, 8192, 64
+PROMPT_ID, NEW_ID = 512, 32
+PROFILED = 4       # decode steps profiled after each serving run of (j)
+S_ATT, H_ATT = 32768, 32
+
 SRC = "src/repro_torch/kernels/accum_apply/csrc/accum_apply.cu"
+LSRC = "src/repro_torch/kernels/landmark_attention/csrc/landmark_attention.cu"
 TPU = "src/repro/kernels/accum_apply/kernel.py"
+LTPU = "src/repro/kernels/landmark_attention/kernel.py"
 FAILURES: list[str] = []
 
 
@@ -118,6 +141,27 @@ def timed(torch, fn, reps: int = 5, run_ms: float = 20.0,
     return ms, (us / 1e3 / calls if us > 0 else None)
 
 
+def profiled(torch, fn) -> tuple[float, float, list]:
+    """(wall ms, device ms, the four kernels with the most device time) of
+    one ``fn()`` under ``torch.profiler``, between device synchronizations.
+    The profiler's own host cost inflates the wall time, not the device's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
+    return wall * 1e3, sum(by.values()), [(n[:60], round(t, 3)) for n, t in top]
+
+
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
     """The least time for the work in ms, and whether bytes or operations set it."""
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
@@ -173,10 +217,19 @@ def main() -> int:
         krr_sketched_fit, krr_sketched_fit_adaptive, krr_sketched_fit_matfree,
         krr_sketched_fit_pcg, make_accum_sketch, make_nystrom_sketch,
         spectral_cluster)
-    from repro_torch._util import stream_generator
+    from repro_torch._util import stream_generator, tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.core.sketched_attention import (
+        accum_attention, decode_slot_table, decode_slots, init_sketch_cache,
+        make_seq_sketch, prefill_sketch_cache, update_sketch_cache)
     from repro_torch.kernels.accum_apply import kernel as KN
     from repro_torch.kernels.accum_apply import ops as OPS
     from repro_torch.kernels.accum_apply import ref
+    from repro_torch.kernels.landmark_attention import kernel as LK
+    from repro_torch.kernels.landmark_attention import ref as LR
+    from repro_torch.models.model import decode_step, init_params, param_count
+    from repro_torch.resilience import faults
+    from repro_torch.serve.engine import Engine, ServeConfig
 
     dev = torch.device(DEVICE)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -187,12 +240,16 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {nvcc}")
     t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        list(pool.map(lambda build: build(), (KN.build, LK.build)))
     KN._lib()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {KN.BUILD_INFO['seconds']:.1f} s) -> {KN.BUILD_INFO['path']}")
-    for line in KN.BUILD_INFO["ptxas"].splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    LK._lib()
+    print(f"kernel builds: {time.perf_counter() - t0:.1f} s, in parallel")
+    for mod in (KN, LK):
+        print(f"  nvcc {mod.BUILD_INFO['seconds']:.1f} s -> {mod.BUILD_INFO['path']}")
+        for line in mod.BUILD_INFO["ptxas"].splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
     lam, bw = 1e-3, 0.5
     gauss = get_kernel("gaussian", bw)
@@ -402,23 +459,109 @@ def main() -> int:
                                    plain_ms=pms, bound_ms=b, bound_by=by,
                                    library_ms=lms)
     del out, lib, C8
+
+    # the serving path's kernels: landmark_attention at the decode shape
+    # (B·Hkv = 32 problems of G = 4 query rows over d_slots = 1024 slots)
+    # and at the F-stage shape of accum_attention, landmark_stats at S = 32768
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gl = torch.Generator(device=dev).manual_seed(7)
+    P, G, Lm, Dh = 32, 4, 1024, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gl, device=dev)
+
+    qd, ktd, Md = randn(P, G, Dh), randn(P, Lm, Dh), randn(P, Lm, Dh)
+    # the bias lane of a decode: log(mass) of the filled slots, −1e30 for
+    # the empty ones (about a tenth here)
+    mass = 3 * torch.rand((P, Lm), generator=gl, device=dev)
+    bias = torch.where(mass < 0.3, -1e30, torch.log(mass))
+    out = LK.landmark_attention(qd, ktd, Md, bias)
+    ea, er, ok = close(out, LR.landmark_attention_ref(qd, ktd, Md, bias), 1e-5)
+    check(ok, f"landmark_attention f32 decode P={P} G={G} L={Lm} Dh={Dh}: max abs "
+              f"{ea:.3e}, /max|plain| {er:.3e} (tol 1e-5)")
+    ms, dms = timed(torch, lambda: LK.landmark_attention(qd, ktd, Md, bias))
+    pms, _ = timed(torch, lambda: LR.landmark_attention_ref(qd, ktd, Md, bias))
+    mask = bias[:, None, :]
+    print(f"  SDPA(q, k̃, M, attn_mask=bias) vs kernel: max abs "
+          f"{(sdpa(qd, ktd, Md, attn_mask=mask) - out).abs().max().item():.3e}")
+    lms, ldms = timed(torch, lambda: sdpa(qd, ktd, Md, attn_mask=mask))
+    b, by = bound_ms((qd.numel() + ktd.numel() + Md.numel() + bias.numel()
+                      + out.numel()) * 4, 2 * P * G * Lm * 2 * Dh)
+    print(f"  landmark_attention decode: {ms:.4f} ms (device {dms}), plain {pms:.4f} ms, "
+          f"bound {b:.5f} ms by {by}, SDPA {lms:.4f} ms (device {ldms})")
+    rows["landmark_attention"] = dict(replaces=f"{LTPU}:54", max_abs_err=ea,
+                                      max_rel_err=er, ms=ms, device_ms=dms,
+                                      plain_ms=pms, bound_ms=b, bound_by=by,
+                                      library_ms=lms, library="SDPA with the bias as "
+                                      "attn_mask", shape="decode P=32 G=4 L=1024")
+    qf, Mf = randn(P, S_ATT, Dh), randn(P, Lm, Dh)
+    out = LK.landmark_attention(qf, ktd, Mf)
+    plain = LR.landmark_attention_ref(qf, ktd, Mf)
+    ea, er, ok = close(out, plain, 1e-5)
+    check(ok, f"landmark_attention f32 F-stage P={P} S={S_ATT} L={Lm}: max abs {ea:.3e}, "
+              f"/max|plain| {er:.3e} (tol 1e-5)")
+    del plain
+    ms, dms = timed(torch, lambda: LK.landmark_attention(qf, ktd, Mf))
+    pms, _ = timed(torch, lambda: LR.landmark_attention_ref(qf, ktd, Mf))
+    lms, ldms = timed(torch, lambda: sdpa(qf, ktd, Mf))
+    b, by = bound_ms((qf.numel() + ktd.numel() + Mf.numel() + out.numel()) * 4,
+                     2 * P * S_ATT * Lm * 2 * Dh)
+    print(f"  landmark_attention F-stage: {ms:.4f} ms (device {dms}), plain {pms:.4f} ms, "
+          f"bound {b:.5f} ms by {by}, SDPA {lms:.4f} ms (device {ldms})")
+    rows["landmark_attention"]["f_stage"] = dict(
+        shape=f"P={P} S={S_ATT} L={Lm}", max_abs_err=ea, ms=ms, device_ms=dms,
+        plain_ms=pms, bound_ms=b, bound_by=by, library_ms=lms)
+    del qf, Mf, out
+    nv, lv = S_ATT - 1000, Lm - 24
+    qt, kk, vv = randn(P, Lm, Dh), randn(P, S_ATT, Dh), randn(P, S_ATT, Dh)
+    W, BmV = LK.landmark_stats(qt, ktd, kk, vv, n_valid=nv, l_valid=lv)
+    Wr, Br = LR.landmark_stats_ref(qt, ktd, kk, vv, n_valid=nv, l_valid=lv)
+    eW, rW, okW = close(W, Wr, 1e-5)
+    eB, rB, okB = close(BmV, Br, 1e-5)
+    check(okW and okB, f"landmark_stats f32 P={P} L={Lm} S={S_ATT} n_valid={nv} "
+                       f"l_valid={lv}: W max abs {eW:.3e} (/max {rW:.3e}), BmV max abs "
+                       f"{eB:.3e} (/max {rB:.3e}) (tol 1e-5)")
+    del Wr, Br
+    ms, dms = timed(torch, lambda: LK.landmark_stats(qt, ktd, kk, vv, n_valid=nv,
+                                                     l_valid=lv))
+    pms, _ = timed(torch, lambda: LR.landmark_stats_ref(qt, ktd, kk, vv, n_valid=nv,
+                                                        l_valid=lv))
+    kv_, vv_ = kk[:, :nv], vv[:, :nv]
+    lms, ldms = timed(torch, lambda: sdpa(qt, kv_, vv_))
+    b, by = bound_ms((2 * P * Lm * Dh + 2 * P * nv * Dh + P * Lm * Lm + P * Lm * Dh) * 4,
+                     2 * P * Lm * nv * 2 * Dh + 2 * P * Lm * lv * Dh)
+    print(f"  landmark_stats: {ms:.4f} ms (device {dms}), plain {pms:.4f} ms, bound "
+          f"{b:.5f} ms by {by}; SDPA(q̃, K, V), the BmV half only: {lms:.4f} ms "
+          f"(device {ldms})")
+    rows["landmark_stats"] = dict(replaces=f"{LTPU}:138", max_abs_err=max(eW, eB),
+                                  max_rel_err=max(rW, rB), ms=ms, device_ms=dms,
+                                  plain_ms=pms, bound_ms=b, bound_by=by, library_ms=lms,
+                                  library="SDPA(q̃, K, V): the BmV half only",
+                                  shape=f"P={P} L={Lm} S={S_ATT}")
+    del qt, kk, vv, kv_, vv_, W, BmV, qd, ktd, Md
     torch.cuda.synchronize()
 
     # ---- 3. the main path ------------------------------------------------- #
     print("\n== main path ==")
-    KN.reset_launches()
-    phase_launches = {}
+    ALL = KN.KERNELS + LK.KERNELS
+
+    def reset_counts():
+        for f in ALL:
+            f.launches = 0
 
     def counts():
-        return {f.__name__: f.launches for f in KN.KERNELS}
+        return {f.__name__: f.launches for f in ALL}
 
     @contextlib.contextmanager
     def off_path():
         """Calls made only to check the main path: their launches are undone."""
         saved = counts()
         yield
-        for f in KN.KERNELS:
+        for f in ALL:
             f.launches = saved[f.__name__]
+
+    reset_counts()
+    phase_launches = {}
 
     # (a) quickstart §1.  One draw does not order the two (the reference's
     # own key-0 draw gives Nyström the lower error), so the claim is held as
@@ -516,7 +659,7 @@ def main() -> int:
 
     # ---- 4. the progressive engine's path ----------------------------------- #
     print("\n== main path: the progressive engine ==")
-    KN.reset_launches()
+    reset_counts()
     phase_launches = {}
 
     def rel(x, y):
@@ -631,18 +774,194 @@ def main() -> int:
     for name in ("accum_apply", "accum_step_slab", "accum_grow_slabs"):
         cnt = launches["engine"][name]
         check(cnt > 0, f"{name} launched {cnt} times on the engine path (e)-(i)")
+    del opb, Xb, yb, fb, Xt, Xc, yc, opc
+    torch.cuda.empty_cache()
+
+    # ---- 5. the serving path: minitron-8b at full width ---------------------- #
+    print(f"\n== main path: serving {ARCH} ==")
+    reset_counts()
+    phase_launches = {}
+    cfg = get_config(ARCH)
+    sa = cfg.sketch_attn
+    L_ = cfg.n_layers
+    params, tinit = wall(torch, lambda: init_params(SEED, cfg, device=dev))
+    print(f"  (j) {ARCH}: {param_count(params) / 1e9:.3f} B parameters, bfloat16, drawn "
+          f"from seed {SEED} on the card in {tinit:.1f} s")
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(SEED)).numpy()
+    served = {}
+    for mode in ("exact", "sketched"):
+        # PROFILED more positions of room: the profiled decode steps below
+        eng = Engine(cfg, params, ServeConfig(max_len=PROMPT + NEW + PROFILED,
+                                              use_sketch=mode == "sketched"))
+        (cache, logits), tpre = wall(torch, lambda: eng.prefill_tokens(
+            eng.new_cache(BATCH), prompts))
+        check(bool(logits.isfinite().all()) and logits.dtype == torch.float32
+              and tuple(logits.shape) == (BATCH, cfg.vocab_size),
+              f"(j) {mode} prefill logits finite, float32, ({BATCH}, {cfg.vocab_size})")
+        del cache, logits
+        torch.cuda.reset_peak_memory_stats()
+        before = LK.landmark_attention.launches
+        (toks, cache), tgen = wall(torch, lambda: eng.generate(prompts, NEW))
+        la = LK.landmark_attention.launches - before
+        nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(cache))
+        tdec = tgen - tpre
+        served[mode] = toks
+        print(f"  (j) {mode:8s}: prefill {BATCH}×{PROMPT} tokens {tpre * 1e3:.1f} ms; "
+              f"generate {NEW} tokens {tgen * 1e3:.1f} ms, so decode {NEW - 1} steps "
+              f"{tdec * 1e3:.1f} ms = {BATCH * (NEW - 1) / tdec:.1f} tokens/s; cache "
+              f"{nbytes / 1e9:.3f} GB; peak {torch.cuda.max_memory_allocated() / 1e9:.1f} "
+              f"GB; landmark_attention launches {la}")
+        check(toks.shape == (BATCH, NEW) and bool(((toks >= 0) & (toks < cfg.vocab_size))
+                                                  .all()),
+              f"(j) {mode}: {BATCH}×{NEW} tokens in the vocabulary")
+        want = L_ * (NEW - 1) if mode == "sketched" else 0
+        check(la == want, f"(j) {mode}: landmark_attention launched {la} times, "
+                          f"n_layers × (n_new − 1) = {want} expected")
+        # where a decode step's time goes: PROFILED more steps under the
+        # profiler (device time against the unprofiled step time above), and
+        # a 1024-token prefill
+        last = torch.as_tensor(toks[:, -1], device=dev)
+
+        def steps(cache=cache):
+            for i in range(PROFILED):
+                pos = PROMPT + NEW - 1 + i
+                _, cache = decode_step(params, cache, last, pos, cfg, slots=decode_slots(
+                    SEED, pos, sa.d_slots, sa.m_r, max_len=eng.sc.max_len))
+
+        with off_path():
+            pw, pdev, top = profiled(torch, steps)
+            step_ms = tdec * 1e3 / (NEW - 1)
+            print(f"  (j) {mode}: {PROFILED} profiled decode steps: device {pdev / PROFILED:.2f} "
+                  f"ms a step against {step_ms:.2f} ms unprofiled, so the device idles "
+                  f"{1 - pdev / PROFILED / step_ms:.2f} of a step; top kernels {top}")
+            pw, pdev, top = profiled(torch, lambda: eng.prefill_tokens(eng.new_cache(BATCH),
+                                                                        prompts[:, :1024]))
+            print(f"  (j) {mode}: profiled prefill of {BATCH}×1024 tokens: wall {pw:.1f} ms, "
+                  f"device {pdev:.1f} ms; top kernels {top}")
+        del cache, eng
+    agree = float((served["exact"] == served["sketched"]).mean())
+    print(f"  (j) greedy tokens equal in the two modes at {PROMPT} tokens of context: "
+          f"{agree:.3f} (the sketched cache holds {sa.d_slots} slots)")
+    phase_launches["j"] = counts()
+
+    # (k) the fold at full width: the prefill cache is bitwise the sequential
+    # fold; a draw with max_len > d_slots, so slots are shared
+    table = decode_slot_table(SEED, 256, sa.d_slots, sa.m_r)
+    gk = torch.Generator(device=dev).manual_seed(8)
+    for dt in (torch.bfloat16, torch.float32):
+        kk = torch.randn((BATCH, cfg.n_kv_heads, 256, cfg.head_dim), generator=gk,
+                         device=dev).to(dt)
+        vv = torch.randn(kk.shape, generator=gk, device=dev).to(dt)
+        seq = init_sketch_cache(BATCH, cfg.n_kv_heads, sa.d_slots, cfg.head_dim, dt,
+                                device=dev)
+        bat = prefill_sketch_cache(seq, kk, vv, table)
+        for t in range(256):
+            seq = update_sketch_cache(seq, kk[:, :, t], vv[:, :, t], table[t])
+        same = all(torch.equal(a, b) for a, b in zip(bat, seq))
+        check(same, f"(k) {dt} sketched prefill of 256 tokens ≡ the sequential fold "
+                    f"bitwise ({BATCH}×{cfg.n_kv_heads}×{sa.d_slots}×{cfg.head_dim})")
+        del kk, vv, seq, bat
+
+    # (k) identity slots (max_len ≤ d_slots): sketched decode is exact
+    # attention; the same tokens are forced through both caches.  Tolerance:
+    # bfloat16 weights — every layer rounds its attention output to bfloat16
+    # after float32 sums taken in another order on the two paths, so the
+    # logits differ by bfloat16 noise (2⁻⁸ relative) carried through 32 layers
+    ml = PROMPT_ID + NEW_ID
+    pk = prompts[:, :PROMPT_ID]
+    engs = {m: Engine(cfg, params, ServeConfig(max_len=ml, use_sketch=m == "sketched",
+                                               cache_dtype=torch.float32))
+            for m in ("exact", "sketched")}
+    forced, _ = engs["exact"].generate(pk, NEW_ID)
+    forced_t = torch.as_tensor(forced, device=dev)
+    logits_by = {}
+    for m, eng in engs.items():
+        cache, lg = eng.prefill_tokens(eng.new_cache(BATCH), pk)
+        out_l = [lg]
+        for i in range(NEW_ID - 1):
+            pos = PROMPT_ID + i
+            lg, cache = decode_step(params, cache, forced_t[:, i], pos, cfg,
+                                    slots=decode_slots(SEED, pos, sa.d_slots, sa.m_r,
+                                                       max_len=ml))
+            out_l.append(lg)
+        logits_by[m] = torch.stack(out_l, dim=1)
+        del cache
+    ex, sk_ = logits_by["exact"], logits_by["sketched"]
+    dl = ((sk_ - ex).abs().max() / ex.abs().max()).item()
+    agree = (sk_.argmax(-1) == ex.argmax(-1)).float().mean().item()
+    check(dl <= 5e-2, f"(k) identity slots, {PROMPT_ID}-token prompt, {NEW_ID} forced "
+                      f"tokens: sketched vs exact logits max abs diff / max|exact| "
+                      f"{dl:.3e} (tol 5e-2); greedy agreement {agree:.4f}")
+    del logits_by, ex, sk_, engs
+
+    # (k) a generate killed at its 2nd decode chunk by the fault plan and
+    # resumed from its checkpoint emits the same tokens bitwise
+    kw = dict(max_len=2 * sa.d_slots, use_sketch=True, temperature=0.7, seed=3,
+              ckpt_every=4)
+    pr = prompts[:1, :256]
+    ref_toks, _ = Engine(cfg, params, ServeConfig(**kw)).generate(pr, 12)
+    with tempfile.TemporaryDirectory() as ckdir:
+        os.environ[faults.ENV_PLAN] = '{"decode.step": {"action": "kill", "at": 2}}'
+        faults.reset()
+        killed = False
+        try:
+            Engine(cfg, params, ServeConfig(ckpt_dir=ckdir, **kw)).generate(
+                pr, 12, request_id="r")
+        except faults.DeviceLost:
+            killed = True
+        finally:
+            del os.environ[faults.ENV_PLAN]
+            faults.reset()
+        eng = Engine(cfg, params, ServeConfig(ckpt_dir=ckdir, **kw))
+        toks, _ = eng.generate(pr, 12, request_id="r")
+    check(killed and (toks == ref_toks).all() and eng.health.count("ckpt.resume") == 1,
+          f"(k) generate killed by the decode.step plan and resumed: same 12 tokens "
+          f"bitwise ({'killed' if killed else 'NOT killed'})")
+    del params, eng
+    torch.cuda.empty_cache()
+    phase_launches["k"] = counts()
+
+    # (l) accum_attention on a make_seq_sketch draw: the kernel route
+    # (landmark_stats, Newton–Schulz, landmark_attention) against the plain
+    # one.  Tolerance 1e-3 relative: the six Newton–Schulz steps amplify the
+    # float32 sum-order noise of W along its small singular directions (each
+    # step scales them by up to 13/4)
+    d_att, m_att = sa.d_slots, sa.m
+    ga = torch.Generator(device=dev).manual_seed(9)
+    qa, ka, va = (torch.randn((1, H_ATT, S_ATT, cfg.head_dim), generator=ga, device=dev)
+                  for _ in range(3))
+    ska = make_seq_sketch(stream_generator(SEED), S_ATT, d_att, m_att, device=dev)
+    before = counts()
+    out_a, ta = wall(torch, lambda: accum_attention(qa, ka, va, ska))
+    n_la = LK.landmark_attention.launches - before["landmark_attention"]
+    n_ls = LK.landmark_stats.launches - before["landmark_stats"]
+    plain_a, tpa = wall(torch, lambda: accum_attention(qa, ka, va, ska, use_kernel=False))
+    ra = ((out_a - plain_a).norm() / plain_a.norm()).item()
+    print(f"  (l) accum_attention B·H={H_ATT} S={S_ATT} d={d_att} m={m_att}: kernel route "
+          f"{ta * 1e3:.1f} ms ({n_ls} landmark_stats + {n_la} landmark_attention "
+          f"launches), plain route {tpa * 1e3:.1f} ms")
+    check(bool(out_a.isfinite().all()) and ra <= 1e-3 and n_la == n_ls == 1,
+          f"(l) kernel route vs plain: rel {ra:.3e} (tol 1e-3)")
+    del qa, ka, va, out_a, plain_a
+    phase_launches["l"] = counts()
+    launches["serve"] = counts()
+    print(f"  launches after each phase (cumulative): {phase_launches}")
+    for name in ("landmark_attention", "landmark_stats"):
+        cnt = launches["serve"][name]
+        check(cnt > 0, f"{name} launched {cnt} times on the serving path (j)-(l)")
 
     for name, row in rows.items():
         print(f"  {name}: {row['ms']:.4f} ms, device {row['device_ms']} ms "
               f"(plain {row['plain_ms']:.4f} ms, "
               f"bound {row['bound_ms']:.5f} ms by {row['bound_by']}, library "
               f"{row['library_ms']})")
-    # launches: the sum over the two main paths, each counted from 0
-    kernels = [dict(name=f.__name__, route="cuda", source=SRC,
+    # launches: the sum over the three main paths, each counted from 0
+    kernels = [dict(name=f.__name__, route="cuda", source=SRC if f in KN.KERNELS else LSRC,
                     launches=sum(c[f.__name__] for c in launches.values()),
                     launches_by_path={p: c[f.__name__] for p, c in launches.items()},
                     **rows[f.__name__])
-               for f in KN.KERNELS]
+               for f in ALL]
     if FAILURES:
         print(f"\nchip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

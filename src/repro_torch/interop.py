@@ -1,6 +1,6 @@
-"""Carry a sketch, an engine state or a fitted model of the JAX package
-across as numpy arrays, so that the port can be held against the reference
-on the same draw.
+"""Carry a sketch, an engine state, a fitted model, model parameters or a
+decode cache of the JAX package across as numpy arrays, so that the port can
+be held against the reference on the same draw and the same weights.
 
 The port's own draws come from a ``torch.Generator`` and do not reproduce
 JAX's threefry bits; these builders take the reference's (indices, signs,
@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch._util import resolve_device
+from repro_torch._util import resolve_device, tree_map
 from repro_torch.core.kernel_op import KernelOperator
 from repro_torch.core.krr import SketchedKRR
 from repro_torch.core.sketch import AccumSketch, AccumState, _compute_coef
@@ -64,3 +64,44 @@ def krr_from_numpy(theta, indices, signs, probs, X_train, kernel: str,
     op = KernelOperator(X, kernel, bandwidth, nu)
     th = torch.tensor(np.asarray(theta), device=device)
     return SketchedKRR(th, sk, None, X, op.kernel_fn, None, op=op)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (bfloat16 from ml_dtypes included) as a tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_numpy(tree, cfg, *, device) -> dict:
+    """The port's parameters for the reference's ``init_params`` pytree with
+    numpy leaves: the same nested names, every tensor carried over in its
+    dtype (stacked over superblocks as in the reference).  The layout is
+    checked against ``cfg``."""
+    from repro_torch.models.model import _check_cfg
+
+    _check_cfg(cfg)
+    device = resolve_device(device)
+    params = tree_map(lambda a: _tensor(a, device), tree)
+    if tuple(params["embed"].shape) != (cfg.vocab_size, cfg.d_model):
+        raise ValueError(f"embed has shape {tuple(params['embed'].shape)}, config "
+                         f"wants {(cfg.vocab_size, cfg.d_model)}")
+    for key, blk in params["blocks"].items():
+        if blk["attn"]["wq"].shape[0] != cfg.n_superblocks:
+            raise ValueError(f"blocks/{key} is not stacked over {cfg.n_superblocks} "
+                             "superblocks")
+    return params
+
+
+def cache_from_numpy(cache, *, device):
+    """The port's ``SketchCache`` or ``KVCache`` for a reference cache with
+    numpy (or array-like) fields ``(k_sum, v_sum, mass)`` or ``(k, v)``."""
+    from repro_torch.core.sketched_attention import SketchCache
+    from repro_torch.models.attention import KVCache
+
+    device = resolve_device(device)
+    if hasattr(cache, "k_sum"):
+        return SketchCache(*(_tensor(x, device) for x in (cache.k_sum, cache.v_sum,
+                                                          cache.mass)))
+    return KVCache(_tensor(cache.k, device), _tensor(cache.v, device))

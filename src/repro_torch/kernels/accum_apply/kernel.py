@@ -53,33 +53,39 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    """Where the built library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libaccum_apply-{h.hexdigest()[:16]}.so"
+def library_path(source: Path = SOURCE) -> Path:
+    """Where the built library for ``source`` and the flags lives."""
+    h = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels if the library for this source is not built yet.
+def build_source(source: Path, info: dict) -> Path:
+    """Compile ``source`` if its library is not built yet.
 
     Writes to a temporary name and renames, so concurrent builders never
-    load a half-written library.  ``BUILD_INFO["ptxas"]`` keeps ptxas's
-    per-kernel register, spill and shared-memory report of this build."""
-    out = library_path()
+    load a half-written library.  ``info`` receives the seconds the compile
+    took (0.0 when the library was on disk), the path, and ptxas's
+    per-kernel register, spill and shared-memory report (``"ptxas"``)."""
+    out = library_path(source)
     if out.exists():
-        BUILD_INFO.update(seconds=0.0, path=str(out), ptxas="")
+        info.update(seconds=0.0, path=str(out), ptxas="")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(out),
-                      ptxas=proc.stderr)
+    info.update(seconds=time.perf_counter() - t0, path=str(out),
+                ptxas=proc.stderr)
     return out
+
+
+def build() -> Path:
+    """Compile ``csrc/accum_apply.cu`` if it is not built yet (``BUILD_INFO``)."""
+    return build_source(SOURCE, BUILD_INFO)
 
 
 @functools.cache

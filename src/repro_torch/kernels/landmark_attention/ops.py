@@ -1,0 +1,108 @@
+"""Padded entry points for the landmark-attention kernels.
+
+Each wrapper chooses by device alone: a tensor on the CPU takes the plain
+PyTorch version (``ref``), a tensor on a CUDA device launches the CUDA
+kernel (``kernel``), whose failures propagate.  As in the reference's ops,
+the landmark axis of ``landmark_attend`` is padded to a multiple of 8 with
+−1e30 bias, so a padded landmark carries zero weight wherever a real one
+carries any.  Query rows and keys are not padded: the kernels mask their
+own ragged edges.  Launch shapes are fixed functions of the input shapes
+(the reference's measured autotune cache is not ported).
+
+``accum_attention_kernel`` is the full pipeline: landmark pools, then ONE
+fused sweep over S (``landmark_stats``: W and the online-softmax Bm·V, the
+(L, S) Bm matrix never built), then the Newton–Schulz W⁺ in plain torch,
+then the O(S·L) F-stage (``landmark_attention``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.sketch import AccumSketch
+from repro_torch.kernels.landmark_attention import kernel as K_
+from repro_torch.kernels.landmark_attention import ref
+from repro_torch.resilience import faults
+
+NEG_INF = ref.NEG_INF
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _batched(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    return x if x.ndim == ndim else x[None]
+
+
+def landmark_attend(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
+                    bias: torch.Tensor | None = None) -> torch.Tensor:
+    """softmax(q k̃ᵀ/√Dh + bias)·M for arbitrary (S, L).
+
+    q: (S, Dh) or (P, S, Dh); kt: (…, L, Dh); M: (…, L, Dv); bias: (…, L)
+    float32 or None (the decode path folds its log-mass correction and
+    empty-slot masks in here).  Returns (…, S, Dv) in q's dtype."""
+    single = q.ndim == 2
+    q, kt, M = _batched(q, 3), _batched(kt, 3), _batched(M, 3)
+    P, L = M.shape[:2]
+    pad = (-L) % 8
+    if bias is not None:
+        bias = _batched(bias, 2).float()
+    if pad:
+        kt = torch.nn.functional.pad(kt, (0, 0, 0, pad))
+        M = torch.nn.functional.pad(M, (0, 0, 0, pad))
+        if bias is None:
+            bias = torch.zeros((P, L), dtype=torch.float32, device=q.device)
+        bias = torch.nn.functional.pad(bias, (0, pad), value=NEG_INF)
+    if _on_cuda(q):
+        out = K_.landmark_attention(
+            q.contiguous(), kt.to(q.dtype).contiguous(), M.to(q.dtype).contiguous(),
+            None if bias is None else bias.contiguous())
+    else:
+        out = ref.landmark_attention_ref(q, kt, M, bias)
+    return out[0] if single else out
+
+
+def landmark_stats_fused(qt: torch.Tensor, kt: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused (W, Bm·V) for arbitrary (S, L): qt, kt (…, L, Dh); k (…, S, Dh);
+    v (…, S, Dv), with (…) empty or one batch axis.  One sweep over S
+    computes both the landmark-row softmax W = softmax(q̃k̃ᵀ) and the
+    online-softmax accumulation of softmax(q̃Kᵀ)·V.  Returns (W (…, L, L),
+    BmV (…, L, Dv)) float32."""
+    single = qt.ndim == 2
+    qt, kt, k, v = (_batched(x, 3) for x in (qt, kt, k, v))
+    if _on_cuda(qt):
+        dt = qt.dtype
+        W, BmV = K_.landmark_stats(qt.contiguous(), kt.to(dt).contiguous(),
+                                   k.to(dt).contiguous(), v.to(dt).contiguous())
+    else:
+        W, BmV = ref.landmark_stats_ref(qt, kt, k, v)
+    return (W[0], BmV[0]) if single else (W, BmV)
+
+
+def accum_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           sk: AccumSketch, *, pinv_iters: int = 6) -> torch.Tensor:
+    """Full sketched attention (B, H, S, Dh) with both O(S·L) stages in the
+    kernels (matching ``core.sketched_attention.accum_attention``):
+
+      k̃/q̃ = landmark pools;
+      (W, BmV) = ``landmark_stats`` — ONE fused sweep over S;
+      M = W⁺ · BmV  [small L×L, plain torch Newton–Schulz];
+      out = softmax(Q K̃ᵀ)·M — ``landmark_attention``, O(S·L).
+
+    This entry visits the ``kernel.dispatch`` fault site: an injected error
+    raises to the caller.  It never degrades to the plain route."""
+    from repro_torch.core.sketched_attention import _newton_schulz_pinv, landmark_pool
+
+    faults.fault_point("kernel.dispatch")
+    kt = landmark_pool(k, sk, normalize=True)
+    qt = landmark_pool(q, sk, normalize=True)
+    B, H = q.shape[:2]
+
+    def flat(x):
+        return x.reshape((B * H,) + x.shape[2:])
+
+    W, BmV = landmark_stats_fused(flat(qt), flat(kt), flat(k), flat(v))
+    M = _newton_schulz_pinv(W, pinv_iters) @ BmV                    # (BH, L, Dv)
+    out = landmark_attend(flat(q), flat(kt), M.to(q.dtype))
+    return out.reshape(q.shape[:2] + out.shape[1:])

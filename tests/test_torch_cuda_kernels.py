@@ -13,6 +13,9 @@ from repro_torch.core.kernels_math import get_kernel  # noqa: E402
 from repro_torch.kernels.accum_apply import kernel as KT  # noqa: E402
 from repro_torch.kernels.accum_apply import ops as OT  # noqa: E402
 from repro_torch.kernels.accum_apply import ref as RT  # noqa: E402
+from repro_torch.kernels.landmark_attention import kernel as LK  # noqa: E402
+from repro_torch.kernels.landmark_attention import ops as LO  # noqa: E402
+from repro_torch.kernels.landmark_attention import ref as LR  # noqa: E402
 
 KERNELS = [("gaussian", 0.6, 1.5), ("laplacian", 1.0, 1.5), ("matern", 0.8, 0.5),
            ("matern", 0.8, 1.5), ("matern", 0.8, 2.5)]
@@ -138,3 +141,121 @@ def test_cuda_engine_routes_match_plain(cuda_device):
         got, plain = grow(st, True), grow(st, False)
         for x, y in ((got.C, plain.C), (got.W, plain.W)):
             assert ((x - y).norm() / y.norm()).item() < 1e-5
+
+
+# --------------------------------------------------------------------------- #
+# the landmark-attention kernels
+# --------------------------------------------------------------------------- #
+
+def _randn(g, shape, dev, dtype=torch.float32):
+    return torch.randn(shape, generator=g).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,S,L,Dh,Dv", [(6, 4, 100, 32, 32), (3, 130, 77, 16, 24),
+                                         (2, 70, 40, 64, 200), (4, 1, 1024, 128, 128),
+                                         (2, 300, 33, 80, 80)])
+def test_cuda_landmark_attention_matches_plain(cuda_device, P, S, L, Dh, Dv, dtype):
+    """Odd S and L (the kernel masks its ragged edges), Dv above one value
+    tile, the decode shape with a bias lane mixing log-mass with −1e30, and
+    a row whose every landmark is masked (uniform weights, no NaN).  float32
+    at 1e-5 of max|plain| (sum order only); bfloat16 output at 2e-2 (one
+    rounding of the output)."""
+    g = torch.Generator().manual_seed(P + S + L)
+    q, kt = _randn(g, (P, S, Dh), cuda_device, dtype), _randn(g, (P, L, Dh), cuda_device, dtype)
+    M = _randn(g, (P, L, Dv), cuda_device, dtype)
+    bias = torch.log(torch.rand((P, L), generator=g) * 3 + 0.1)
+    bias[:, ::3] = -1e30
+    bias[0] = -1e30
+    bias = bias.to(cuda_device)
+    out = LK.landmark_attention(q, kt, M, bias)
+    plain = LR.landmark_attention_ref(q, kt, M, bias)
+    assert out.dtype == dtype and out.isfinite().all()
+    _close(out, plain, 1e-5 if dtype == torch.float32 else 2e-2)
+    _close(LK.landmark_attention(q, kt, M), LR.landmark_attention_ref(q, kt, M),
+           1e-5 if dtype == torch.float32 else 2e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,L,S,Dh,Dv,nv,lv", [(3, 50, 300, 16, 24, 270, 45),
+                                               (2, 130, 2049, 64, 64, 2049, 130),
+                                               (1, 7, 5, 8, 5, 3, 2)])
+def test_cuda_landmark_stats_matches_plain(cuda_device, P, L, S, Dh, Dv, nv, lv, dtype):
+    """W and BmV with keys ≥ n_valid and landmark columns ≥ l_valid masked,
+    against the plain version with the same masks: float32 sums, held at
+    1e-5 of max|plain| (bfloat16 inputs are widened exactly, so the same)."""
+    g = torch.Generator().manual_seed(P + L + S)
+    qt, kt = _randn(g, (P, L, Dh), cuda_device, dtype), _randn(g, (P, L, Dh), cuda_device, dtype)
+    k, v = _randn(g, (P, S, Dh), cuda_device, dtype), _randn(g, (P, S, Dv), cuda_device, dtype)
+    W, BmV = LK.landmark_stats(qt, kt, k, v, n_valid=nv, l_valid=lv)
+    Wr, BmVr = LR.landmark_stats_ref(qt, kt, k, v, n_valid=nv, l_valid=lv)
+    assert W.dtype == BmV.dtype == torch.float32
+    _close(W, Wr, 1e-5)
+    _close(BmV, BmVr, 1e-5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_landmark_wrappers_route_cuda_tensors_to_the_kernels(cuda_device):
+    """ops entry points, the decode attend and accum_attention launch the
+    kernels once per call on CUDA tensors and agree with the plain routes."""
+    from repro_torch.core.sketched_attention import (
+        SketchCache, accum_attention, make_seq_sketch, sketch_decode_attend)
+
+    g = torch.Generator().manual_seed(1)
+    LK.reset_launches()
+    q, kt, M = (_randn(g, s, cuda_device) for s in ((37, 16), (13, 16), (13, 8)))
+    _close(LO.landmark_attend(q, kt, M), LR.landmark_attention_ref(q, kt, M), 1e-5)
+    W, BmV = LO.landmark_stats_fused(kt, kt, q, _randn(g, (37, 8), cuda_device))
+    assert LK.landmark_attention.launches == LK.landmark_stats.launches == 1
+    cache = SketchCache(_randn(g, (2, 2, 24, 16), cuda_device),
+                        _randn(g, (2, 2, 24, 16), cuda_device),
+                        torch.rand((2, 2, 24), generator=g).to(cuda_device))
+    qd = _randn(g, (2, 4, 16), cuda_device)
+    _close(sketch_decode_attend(qd, cache), sketch_decode_attend(qd, cache, use_kernel=False),
+           1e-5)
+    assert LK.landmark_attention.launches == 2
+    B, H, S, Dh = 1, 2, 256, 32
+    qa, ka, va = (_randn(g, (B, H, S, Dh), cuda_device) for _ in range(3))
+    sk = make_seq_sketch(torch.Generator().manual_seed(2), S, 32, 4, device=cuda_device)
+    got = accum_attention(qa, ka, va, sk)
+    assert LK.landmark_attention.launches == 3 and LK.landmark_stats.launches == 2
+    _close(got, accum_attention(qa, ka, va, sk, use_kernel=False), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme", ["uniform", "poisson"])
+def test_cuda_prefill_fold_bitwise_equals_sequential(cuda_device, dtype, scheme):
+    """On the card the prefill cache is bitwise the token-by-token fold."""
+    from repro_torch.core.sketched_attention import (
+        decode_slot_table, init_sketch_cache, prefill_sketch_cache, update_sketch_cache)
+
+    B, Hkv, d_slots, m_r, Dh, L = 2, 2, 16, 2, 8, 40
+    table = decode_slot_table(0, L, d_slots, m_r, scheme=scheme)
+    g = torch.Generator().manual_seed(3)
+    k = _randn(g, (B, Hkv, L, Dh), cuda_device, dtype)
+    v = _randn(g, (B, Hkv, L, Dh), cuda_device, dtype)
+    seq = init_sketch_cache(B, Hkv, d_slots, Dh, dtype, device=cuda_device)
+    bat = prefill_sketch_cache(seq, k, v, table)
+    for t in range(L):
+        seq = update_sketch_cache(seq, k[:, :, t], v[:, :, t], table[t])
+    for x, y in zip(bat, seq):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_head_logits_float32_without_a_widened_head(cuda_device):
+    """bfloat16 hidden state × bfloat16 head → float32 logits (not rounded
+    to bfloat16), equal to the widened product up to float32 sum order."""
+    from repro_torch.models.model import _head_logits
+
+    g = torch.Generator().manual_seed(4)
+    h = _randn(g, (3, 256), cuda_device, torch.bfloat16)
+    emb = _randn(g, (1000, 256), cuda_device, torch.bfloat16)
+    got = _head_logits(h, emb)
+    assert got.dtype == torch.float32
+    _close(got, h.float() @ emb.float().T, 1e-5)
