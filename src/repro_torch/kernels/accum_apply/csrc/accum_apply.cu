@@ -1,6 +1,6 @@
 // Accumulation-sketch application kernels for Hopper (sm_90a).
 //
-// Six kernels replace the TPU's Pallas kernels in
+// Seven kernels replace the TPU's Pallas kernels in
 // src/repro/kernels/accum_apply/kernel.py (AA below).  The sketch S has m
 // non-zeros per column, given by idx/coef of shape (m, d):
 //
@@ -15,6 +15,12 @@
 //
 // An index outside [0, N) reads nothing and poisons its output with NaN, so
 // a bad sketch shows in the result instead of reading out of bounds.
+//
+// Launch geometry: the rows a block takes are a runtime argument of
+// matfree_apply and of the column gather (kernel.py's ``bm``), chosen by the
+// measured autotune cache (autotune.py).  A block's threads, shared memory
+// and registers do not depend on it, and each output element keeps its one
+// owner and its order of summation, so every row count gives the same bits.
 //
 // Plain C interface, loaded with ctypes by kernel.py.  Each entry launches
 // on the caller's stream and returns cudaGetLastError().
@@ -58,7 +64,8 @@ __device__ __forceinline__ float kernel_value(float d2, int kind, float bw, floa
 // d = 64).  The m·d·n kernel evaluations (about 13 float32 operations each
 // at p = 3) take less time than writing C at 3.35 TB/s.
 //
-// Design: a block of 32 × 8 threads takes 64 rows of X and a group of `jc`
+// Design: a block of 32 × 8 threads takes `rows` rows of X (64 unless the
+// autotune cache chose otherwise) and a group of `jc`
 // output columns (grid.y; all d columns when the group's landmarks fit 48
 // KB).  It stages the group's m·jc landmark rows transposed, (p, m·jc), with
 // their squared norms and coefficients, in shared memory.  A warp takes RB
@@ -68,13 +75,11 @@ __device__ __forceinline__ float kernel_value(float d2, int kind, float bw, floa
 // and they write neighbouring elements of C, so every store is coalesced.  The Cmat of the TPU kernel
 // (ops.expand_coef) is never built: the sum over i < m is the contraction.
 // --------------------------------------------------------------------------
-constexpr int kMatfreeRows = 64;
-
 template <typename T, int P, int RB>
 __global__ void matfree_apply_kernel(const T* __restrict__ X, const T* __restrict__ L,
                                      const float* __restrict__ coef, float* __restrict__ out,
                                      int n, int p, int m, int d, int jc, int kind, float bw,
-                                     float gdenom) {
+                                     float gdenom, int rows) {
   constexpr int PR = P > 0 ? P : 1;   // x held in registers when P > 0
   extern __shared__ float smem[];
   const int j0 = blockIdx.y * jc;
@@ -104,8 +109,8 @@ __global__ void matfree_apply_kernel(const T* __restrict__ X, const T* __restric
 
   // RB rows at a time per warp: each landmark read from shared memory
   // serves RB kernel evaluations
-  const int r_end = min(n, (blockIdx.x + 1) * kMatfreeRows);
-  for (int rb = blockIdx.x * kMatfreeRows + threadIdx.y * RB; rb < r_end;
+  const int r_end = (int)min((long long)n, (long long)(blockIdx.x + 1) * rows);
+  for (int rb = blockIdx.x * rows + threadIdx.y * RB; rb < r_end;
        rb += blockDim.y * RB) {
     float xreg[RB][PR];
     float x2[RB];
@@ -164,7 +169,7 @@ __global__ void matfree_apply_kernel(const T* __restrict__ X, const T* __restric
 template <typename T, int P>
 cudaError_t launch_matfree(const void* X, const void* L, const float* coef, float* out, int n,
                            int p, int m, int d, int jc, int kind, float bw, float gdenom,
-                           cudaStream_t stream) {
+                           int rows, cudaStream_t stream) {
   const size_t smem = (size_t)m * jc * (p + 2) * sizeof(float);
   // four rows per warp step where x is held in registers
   auto kern = matfree_apply_kernel<T, P, (P > 0 ? 4 : 1)>;
@@ -173,20 +178,21 @@ cudaError_t launch_matfree(const void* X, const void* L, const float* coef, floa
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((n + kMatfreeRows - 1) / kMatfreeRows, (d + jc - 1) / jc);
+  const dim3 grid((n + rows - 1) / rows, (d + jc - 1) / jc);
   kern<<<grid, dim3(32, 8), smem, stream>>>(static_cast<const T*>(X), static_cast<const T*>(L),
-                                            coef, out, n, p, m, d, jc, kind, bw, gdenom);
+                                            coef, out, n, p, m, d, jc, kind, bw, gdenom, rows);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_matfree(const void* X, const void* L, const float* coef, float* out, int n,
                              int p, int m, int d, int jc, int kind, float bw, float gdenom,
-                             cudaStream_t s) {
+                             int rows, cudaStream_t s) {
   // p ≤ 4 (the measured main path has p = 3) keeps x in registers; any
   // other p reads x from global memory
-  if (p <= 4) return launch_matfree<T, 4>(X, L, coef, out, n, p, m, d, jc, kind, bw, gdenom, s);
-  return launch_matfree<T, 0>(X, L, coef, out, n, p, m, d, jc, kind, bw, gdenom, s);
+  if (p <= 4)
+    return launch_matfree<T, 4>(X, L, coef, out, n, p, m, d, jc, kind, bw, gdenom, rows, s);
+  return launch_matfree<T, 0>(X, L, coef, out, n, p, m, d, jc, kind, bw, gdenom, rows, s);
 }
 
 // --------------------------------------------------------------------------
@@ -246,18 +252,17 @@ cudaError_t launch_left(const void* M, const int* idx, const float* coef, float*
 // 32-byte sectors, so the card moves up to 8 times the needed bytes of K
 // (16 times in bfloat16).
 //
-// Design: a block takes 64 rows and stages idx/coef in shared memory (where
-// they fit 48 KB); a warp takes one row at a time with its lanes along j, so
+// Design: a block takes `rows` rows (64 unless the autotune cache chose
+// otherwise) and stages idx/coef in shared memory (where they fit 48 KB); a
+// warp takes one row at a time with its lanes along j, so
 // the reads of Cin and the writes are coalesced, and each lane sums its m
 // terms in order.  One pass, no reduction across threads or blocks.
 // --------------------------------------------------------------------------
-constexpr int kGatherRows = 64;
-
 template <typename T, typename TO>
 __global__ void sketch_gather_kernel(const T* __restrict__ K, const int* __restrict__ idx,
                                      const float* __restrict__ coef, const float* Cin, float a,
                                      float* __restrict__ C32, TO* Cout, int R, int N, int m,
-                                     int d, int staged) {
+                                     int d, int staged, int rows) {
   extern __shared__ int sbuf[];
   const int md = m * d;
   const int* I = idx;
@@ -274,8 +279,8 @@ __global__ void sketch_gather_kernel(const T* __restrict__ K, const int* __restr
     I = sI;
     F = sF;
   }
-  const int r0 = blockIdx.x * kGatherRows;
-  const int r1 = min(R, r0 + kGatherRows);
+  const int r0 = blockIdx.x * rows;
+  const int r1 = (int)min((long long)R, (long long)r0 + rows);
   for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
     const T* Kr = K + (size_t)r * N;
     for (int j = threadIdx.x; j < d; j += blockDim.x) {
@@ -295,13 +300,13 @@ __global__ void sketch_gather_kernel(const T* __restrict__ K, const int* __restr
 
 template <typename T, typename TO>
 cudaError_t launch_gather(const void* K, const int* idx, const float* coef, const float* Cin,
-                          float a, float* C32, TO* Cout, int R, int N, int m, int d,
+                          float a, float* C32, TO* Cout, int R, int N, int m, int d, int rows,
                           cudaStream_t stream) {
   const size_t smem = (size_t)m * d * (sizeof(int) + sizeof(float));
   const int staged = smem <= 48 * 1024;
-  const dim3 grid((R + kGatherRows - 1) / kGatherRows);
+  const dim3 grid((R + rows - 1) / rows);
   sketch_gather_kernel<T, TO><<<grid, dim3(32, 8), staged ? smem : 0, stream>>>(
-      static_cast<const T*>(K), idx, coef, Cin, a, C32, Cout, R, N, m, d, staged);
+      static_cast<const T*>(K), idx, coef, Cin, a, C32, Cout, R, N, m, d, staged, rows);
   return cudaGetLastError();
 }
 
@@ -321,9 +326,9 @@ cudaError_t launch_gather(const void* K, const int* idx, const float* coef, cons
 // --------------------------------------------------------------------------
 template <typename T>
 cudaError_t launch_both(const void* K, const int* idx, const float* coef, float* C32, void* Cout,
-                        float* W, int R, int N, int m, int d, cudaStream_t stream) {
+                        float* W, int R, int N, int m, int d, int rows, cudaStream_t stream) {
   const cudaError_t e = launch_gather<T, T>(K, idx, coef, nullptr, 0.0f, C32,
-                                            static_cast<T*>(Cout), R, N, m, d, stream);
+                                            static_cast<T*>(Cout), R, N, m, d, rows, stream);
   if (e != cudaSuccess) return e;
   return launch_left<float>(C32, idx, coef, W, R, d, m, d, stream);
 }
@@ -337,9 +342,9 @@ cudaError_t launch_both(const void* K, const int* idx, const float* coef, float*
 // --------------------------------------------------------------------------
 template <typename T>
 cudaError_t launch_apply(const void* K, const int* idx, const float* coef, void* out, int R,
-                         int N, int m, int d, cudaStream_t stream) {
+                         int N, int m, int d, int rows, cudaStream_t stream) {
   return launch_gather<T, T>(K, idx, coef, nullptr, 0.0f, nullptr, static_cast<T*>(out), R, N,
-                             m, d, stream);
+                             m, d, rows, stream);
 }
 
 // --------------------------------------------------------------------------
@@ -351,8 +356,8 @@ cudaError_t launch_apply(const void* K, const int* idx, const float* coef, void*
 // --------------------------------------------------------------------------
 template <typename T>
 cudaError_t launch_step(const void* K, const int* idx, const float* coef, const float* Cin,
-                        float a, float* out, int R, int N, int d, cudaStream_t stream) {
-  return launch_gather<T, float>(K, idx, coef, Cin, a, nullptr, out, R, N, 1, d, stream);
+                        float a, float* out, int R, int N, int d, int rows, cudaStream_t stream) {
+  return launch_gather<T, float>(K, idx, coef, Cin, a, nullptr, out, R, N, 1, d, rows, stream);
 }
 
 // --------------------------------------------------------------------------
@@ -373,12 +378,57 @@ cudaError_t launch_step(const void* K, const int* idx, const float* coef, const 
 template <typename T>
 cudaError_t launch_grow(const void* K, const int* idx, const float* coef, const float* Cin,
                         float a, float* out, float* G32, float* TtG, float* TtC, int R, int N,
-                        int B, int d, cudaStream_t stream) {
+                        int B, int d, int rows, cudaStream_t stream) {
   cudaError_t e = launch_left<float>(Cin, idx, coef, TtC, R, d, B, d, stream);
   if (e != cudaSuccess) return e;
-  e = launch_gather<T, float>(K, idx, coef, Cin, a, G32, out, R, N, B, d, stream);
+  e = launch_gather<T, float>(K, idx, coef, Cin, a, G32, out, R, N, B, d, rows, stream);
   if (e != cudaSuccess) return e;
   return launch_left<float>(G32, idx, coef, TtG, R, d, B, d, stream);
+}
+
+// --------------------------------------------------------------------------
+// accum_apply_scalar — replaces AA:529 `accum_apply_scalar` (body AA:514
+// `_scalar_kernel`): the seed's scalar per-column gather loop, kept as the
+// naive baseline of the K·S microbenchmark (benchmarks/kernel_bench.py).
+//
+// out[r, j] = Σ_{i<m} coef[i, j] · K[r, idx[i, j]]   (float32 sum, out in K's type)
+//
+// Grid (R/bm, d/bd), as the TPU kernel's.  A thread takes one of the
+// block's bm rows at a time and loops over the block's bd columns and the m
+// sub-sketches in order, reading one K[r, idx[i, j]] at a time, with idx
+// and coef read from global memory at every step.  Deliberately untuned: no
+// shared-memory staging, no autotune, no vectorisation.  Neighbouring
+// threads read one column of neighbouring rows, N elements apart, so each
+// read is its own 32-byte sector, as in the gather above.  Bound on the
+// H100: bytes, the R·m·d sampled entries of K and the R·d outputs.
+// --------------------------------------------------------------------------
+template <typename T>
+__global__ void accum_apply_scalar_kernel(const T* __restrict__ K, const int* __restrict__ idx,
+                                          const float* __restrict__ coef, T* __restrict__ out,
+                                          int N, int m, int d, int bm, int bd) {
+  const int r0 = blockIdx.x * bm, j0 = blockIdx.y * bd;
+  for (int r = r0 + threadIdx.x; r < r0 + bm; r += blockDim.x) {
+    const T* Kr = K + (size_t)r * N;
+    for (int jj = 0; jj < bd; ++jj) {
+      const int j = j0 + jj;
+      float acc = 0.0f;
+      for (int i = 0; i < m; ++i) {
+        const int col = idx[i * d + j];
+        const float v = (unsigned)col < (unsigned)N ? to_f32(Kr[col]) : __int_as_float(0x7fc00000);
+        acc += coef[i * d + j] * v;
+      }
+      store(out + (size_t)r * d + j, acc);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_scalar(const void* K, const int* idx, const float* coef, void* out, int R,
+                          int N, int m, int d, int bm, int bd, cudaStream_t stream) {
+  const dim3 grid(R / bm, d / bd);
+  accum_apply_scalar_kernel<T><<<grid, bm < 256 ? bm : 256, 0, stream>>>(
+      static_cast<const T*>(K), idx, coef, static_cast<T*>(out), N, m, d, bm, bd);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -386,12 +436,13 @@ cudaError_t launch_grow(const void* K, const int* idx, const float* coef, const 
 extern "C" {
 
 int repro_matfree_apply(const void* X, const void* L, const float* coef, float* out, int n, int p,
-                        int m, int d, int jc, int kind, float bw, float gdenom, int is_bf16,
-                        void* stream) {
+                        int m, int d, int jc, int kind, float bw, float gdenom, int rows,
+                        int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch_matfree<__nv_bfloat16>(X, L, coef, out, n, p, m, d, jc, kind, bw,
-                                                   gdenom, s)
-                 : dispatch_matfree<float>(X, L, coef, out, n, p, m, d, jc, kind, bw, gdenom, s);
+                                                   gdenom, rows, s)
+                 : dispatch_matfree<float>(X, L, coef, out, n, p, m, d, jc, kind, bw, gdenom,
+                                           rows, s);
 }
 
 int repro_accum_apply_left(const void* M, const int* idx, const float* coef, float* out, int N,
@@ -402,34 +453,45 @@ int repro_accum_apply_left(const void* M, const int* idx, const float* coef, flo
 }
 
 int repro_accum_sketch_both(const void* K, const int* idx, const float* coef, float* C32,
-                            void* Cout, float* W, int R, int N, int m, int d, int is_bf16,
-                            void* stream) {
+                            void* Cout, float* W, int R, int N, int m, int d, int rows,
+                            int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_both<__nv_bfloat16>(K, idx, coef, C32, Cout, W, R, N, m, d, s)
-                 : launch_both<float>(K, idx, coef, C32, Cout, W, R, N, m, d, s);
+  return is_bf16 ? launch_both<__nv_bfloat16>(K, idx, coef, C32, Cout, W, R, N, m, d, rows, s)
+                 : launch_both<float>(K, idx, coef, C32, Cout, W, R, N, m, d, rows, s);
 }
 
 int repro_accum_apply(const void* K, const int* idx, const float* coef, void* out, int R, int N,
-                      int m, int d, int is_bf16, void* stream) {
+                      int m, int d, int rows, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_apply<__nv_bfloat16>(K, idx, coef, out, R, N, m, d, s)
-                 : launch_apply<float>(K, idx, coef, out, R, N, m, d, s);
+  return is_bf16 ? launch_apply<__nv_bfloat16>(K, idx, coef, out, R, N, m, d, rows, s)
+                 : launch_apply<float>(K, idx, coef, out, R, N, m, d, rows, s);
 }
 
 int repro_accum_step_slab(const void* K, const int* idx, const float* coef, const float* Cin,
-                          float a, float* out, int R, int N, int d, int is_bf16, void* stream) {
+                          float a, float* out, int R, int N, int d, int rows, int is_bf16,
+                          void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_step<__nv_bfloat16>(K, idx, coef, Cin, a, out, R, N, d, s)
-                 : launch_step<float>(K, idx, coef, Cin, a, out, R, N, d, s);
+  return is_bf16 ? launch_step<__nv_bfloat16>(K, idx, coef, Cin, a, out, R, N, d, rows, s)
+                 : launch_step<float>(K, idx, coef, Cin, a, out, R, N, d, rows, s);
 }
 
 int repro_accum_grow_slabs(const void* K, const int* idx, const float* coef, const float* Cin,
                            float a, float* out, float* G32, float* TtG, float* TtC, int R, int N,
-                           int B, int d, int is_bf16, void* stream) {
+                           int B, int d, int rows, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_grow<__nv_bfloat16>(K, idx, coef, Cin, a, out, G32, TtG, TtC, R, N, B,
-                                              d, s)
-                 : launch_grow<float>(K, idx, coef, Cin, a, out, G32, TtG, TtC, R, N, B, d, s);
+                                              d, rows, s)
+                 : launch_grow<float>(K, idx, coef, Cin, a, out, G32, TtG, TtC, R, N, B, d, rows,
+                                      s);
+}
+
+// bm divides R and bd divides d (kernel.py checks both, as the reference
+// asserts them).
+int repro_accum_apply_scalar(const void* K, const int* idx, const float* coef, void* out, int R,
+                             int N, int m, int d, int bm, int bd, int is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_scalar<__nv_bfloat16>(K, idx, coef, out, R, N, m, d, bm, bd, s)
+                 : launch_scalar<float>(K, idx, coef, out, R, N, m, d, bm, bd, s);
 }
 
 }  // extern "C"

@@ -33,10 +33,19 @@
 //   F-stage landmark_attention and landmark_stats: float32 operations,
 //     2·S·L·(Dh + Dv) per problem (≈ 550 GFLOP at B·H = 32, S = 32768,
 //     L = 1024), against 67 TFLOP/s outside the tensor cores.  Each block
-//     holds 64 query rows, so a key tile loaded once serves 64 rows; each
-//     thread computes a 4 × 2 tile of scores and a 4 × 8 tile of the
-//     accumulator from shared memory.  Simple, not yet fast: the scores' inner
-//     loop issues 6 shared loads per 8 multiply-adds.
+//     holds BQ query rows (64 unless the autotune cache chose 8 or 128), so a
+//     key tile loaded once serves BQ rows; at BQ = 64 each thread computes a
+//     4 × 2 tile of scores and a 4 × 8 tile of the accumulator from shared
+//     memory.  Simple, not yet fast: the scores' inner loop issues 6 shared
+//     loads per 8 multiply-adds at BQ = 64.
+//
+// Launch geometry: BQ (the query rows a block, landmark rows in
+// landmark_stats' BmV sweep) is a template argument in {8, 64, 128}, chosen
+// by the measured autotune cache (kernel.py).  It decides which block
+// computes a row, never a sum's order: every score is one thread's k-ordered
+// sum, every row's softmax walks the same key tiles with the same warp
+// reductions, and the key splits are fixed by the shape (kernel.py `plan`),
+// so every BQ gives the same bits.
 //
 // Plain C interface, loaded with ctypes by kernel.py.  Each entry launches
 // on the caller's stream and returns cudaGetLastError().
@@ -75,6 +84,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Rows are strided by the number of thread rows, columns by the number of
 // thread columns, so a warp reads neighbouring words of shared memory.
 template <int BQ> struct Shape;
+template <> struct Shape<128> { static constexpr int RS = 8, CS = 2, RA = 8, CA = 8; };
 template <> struct Shape<64> { static constexpr int RS = 4, CS = 2, RA = 4, CA = 8; };
 template <> struct Shape<8> { static constexpr int RS = 1, CS = 1, RA = 1, CA = 4; };
 
@@ -387,15 +397,43 @@ cudaError_t dispatch_attend(int bq, const void* q, const void* keys, const void*
   if (bq == 8)
     return launch_attend<T, TO, 8>(q, keys, vals, bias, out, pm, pd, pacc, P, S, Lk, Dh, Dv,
                                    n_valid, nsplit, tiles_per_split, scale, s);
+  if (bq == 128)
+    return launch_attend<T, TO, 128>(q, keys, vals, bias, out, pm, pd, pacc, P, S, Lk, Dh, Dv,
+                                     n_valid, nsplit, tiles_per_split, scale, s);
   return launch_attend<T, TO, 64>(q, keys, vals, bias, out, pm, pd, pacc, P, S, Lk, Dh, Dv,
                                   n_valid, nsplit, tiles_per_split, scale, s);
+}
+
+// Whether the sweep with BQ = bq and head dim Dh can launch on the current
+// device: its shared memory within the opt-in limit, and its registers
+// leaving room for kThreads threads a block.
+template <typename T, typename TO>
+cudaError_t check_attend(int bq, int Dh, int* fits) {
+  cudaFuncAttributes attr;
+  cudaError_t e;
+  if (bq == 8) e = cudaFuncGetAttributes(&attr, attend_partial_kernel<T, TO, 8>);
+  else if (bq == 64) e = cudaFuncGetAttributes(&attr, attend_partial_kernel<T, TO, 64>);
+  else if (bq == 128) e = cudaFuncGetAttributes(&attr, attend_partial_kernel<T, TO, 128>);
+  else {
+    *fits = 0;
+    return cudaSuccess;
+  }
+  if (e != cudaSuccess) return e;
+  int dev = 0, optin = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  const size_t smem = smem_floats(bq, Dh) * sizeof(float) + attr.sharedSizeBytes;
+  *fits = attr.maxThreadsPerBlock >= kThreads && smem <= (size_t)optin;
+  return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t launch_stats(const void* qt, const void* kt, const void* k, const void* v, float* W,
                          float* BmV, float* pm, float* pd, float* pacc, int P, int L, int S,
                          int Dh, int Dv, int n_valid, int l_valid, int nsplit,
-                         int tiles_per_split, float scale, cudaStream_t stream) {
+                         int tiles_per_split, int bs, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats(64, Dh) * sizeof(float);
   auto kern = landmark_softmax_kernel<T>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -405,8 +443,8 @@ cudaError_t launch_stats(const void* qt, const void* kt, const void* k, const vo
       static_cast<const T*>(qt), static_cast<const T*>(kt), W, L, Dh, l_valid, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_attend<T, float, 64>(qt, k, v, nullptr, BmV, pm, pd, pacc, P, L, S, Dh, Dv,
-                                     n_valid, nsplit, tiles_per_split, scale, stream);
+  return dispatch_attend<T, float>(bs, qt, k, v, nullptr, BmV, pm, pd, pacc, P, L, S, Dh, Dv,
+                                   n_valid, nsplit, tiles_per_split, scale, stream);
 }
 
 }  // namespace
@@ -415,7 +453,7 @@ extern "C" {
 
 // out (P, S, Dv) in q's type from q (P, S, Dh), kt (P, L, Dh), M (P, L, Dv),
 // bias (P, L) float32 or null.  pm, pd (nsplit, P, S) and pacc (nsplit, P, S,
-// Dv) float32 are scratch, unused when nsplit = 1.  bq is 8 or 64.
+// Dv) float32 are scratch, unused when nsplit = 1.  bq is 8, 64 or 128.
 int repro_landmark_attention(const void* q, const void* kt, const void* M, const float* bias,
                              void* out, float* pm, float* pd, float* pacc, int P, int S, int L,
                              int Dh, int Dv, int nsplit, int tiles_per_split, int bq,
@@ -430,17 +468,27 @@ int repro_landmark_attention(const void* q, const void* kt, const void* M, const
 }
 
 // W (P, L, L) and BmV (P, L, Dv) float32 from qt, kt (P, L, Dh), k (P, S, Dh),
-// v (P, S, Dv).  Scratch as above with L rows; nsplit ≥ 2 splits S.
+// v (P, S, Dv).  Scratch as above with L rows; nsplit ≥ 2 splits S; bs (8,
+// 64 or 128) landmark rows a block of the BmV sweep.
 int repro_landmark_stats(const void* qt, const void* kt, const void* k, const void* v, float* W,
                          float* BmV, float* pm, float* pd, float* pacc, int P, int L, int S,
                          int Dh, int Dv, int n_valid, int l_valid, int nsplit,
-                         int tiles_per_split, float scale, int is_bf16, void* stream) {
+                         int tiles_per_split, int bs, float scale, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_stats<__nv_bfloat16>(qt, kt, k, v, W, BmV, pm, pd, pacc, P, L, S, Dh,
                                                Dv, n_valid, l_valid, nsplit, tiles_per_split,
-                                               scale, s)
+                                               bs, scale, s)
                  : launch_stats<float>(qt, kt, k, v, W, BmV, pm, pd, pacc, P, L, S, Dh, Dv,
-                                       n_valid, l_valid, nsplit, tiles_per_split, scale, s);
+                                       n_valid, l_valid, nsplit, tiles_per_split, bs, scale, s);
+}
+
+// *fits = whether the sweep with bq rows a block and head dim Dh can launch
+// here; variant 0: float32 in and out, 1: bfloat16 in and out, 2: bfloat16
+// in, float32 out (landmark_stats' BmV).
+int repro_landmark_check(int bq, int Dh, int variant, int* fits) {
+  if (variant == 1) return check_attend<__nv_bfloat16, __nv_bfloat16>(bq, Dh, fits);
+  if (variant == 2) return check_attend<__nv_bfloat16, float>(bq, Dh, fits);
+  return check_attend<float, float>(bq, Dh, fits);
 }
 
 }  // extern "C"

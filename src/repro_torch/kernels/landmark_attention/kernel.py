@@ -10,8 +10,13 @@ Each launcher checks device, dtype, shape and contiguity, allocates its
 outputs and its split scratch with ``torch.empty``, launches on PyTorch's
 current stream, raises if the C entry returns a CUDA error, and counts its
 launches in a plain integer attribute (``landmark_attention.launches``,
-``landmark_stats.launches``).  Launch shapes are fixed functions of the
-input shapes (``plan``).
+``landmark_stats.launches``; launches made while the autotune cache times
+candidates are counted apart, ``autotune.count_launch``).
+
+Launch geometry: the key splits are a function of the input shapes alone
+(``plan``); the rows a block (``bq``, ``bs``: 8, 64 or 128) are the
+autotune cache's to choose (``ops``), and never change a sum's order.
+``fits`` says whether a candidate can launch on the device.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.accum_apply import autotune
 from repro_torch.kernels.accum_apply.kernel import (
     _check,
     _cuda_device,
@@ -37,6 +43,7 @@ _TYPES = (torch.float32, torch.bfloat16)
 # (four blocks for each of the H100's 132 SMs) — constants of the csrc
 KEY_TILE, VALUE_TILE, TARGET_BLOCKS = 32, 128, 4 * 132
 MAX_HEAD_DIM = 256   # shared memory: the block's query rows and a key tile
+BLOCK_ROWS = (8, 64, 128)   # the rows a block the csrc instantiates
 
 BUILD_INFO: dict = {}
 
@@ -53,24 +60,61 @@ def _lib() -> ctypes.CDLL:
     lib.repro_landmark_attention.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                                              I, I, F, I, P]
     lib.repro_landmark_stats.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                                         I, I, I, F, I, P]
-    for fn in (lib.repro_landmark_attention, lib.repro_landmark_stats):
+                                         I, I, I, I, F, I, P]
+    lib.repro_landmark_check.argtypes = [I, I, I, P]
+    for fn in (lib.repro_landmark_attention, lib.repro_landmark_stats,
+               lib.repro_landmark_check):
         fn.restype = ctypes.c_int
     return lib
 
 
+def static_bq(S: int) -> int:
+    """The query rows a block of the static geometry: 8 where S ≤ 8
+    (decode: G rows), else ``STATIC_TABLE``'s 64."""
+    return 8 if S <= 8 else autotune.STATIC_TABLE["landmark_attention"][0]
+
+
 def plan(P: int, S: int, Lk: int, Dv: int, *, min_split: int = 1
-         ) -> tuple[int, int, int]:
-    """(bq, nsplit, tiles_per_split) of the online-softmax sweep: 8 query
-    rows a block where S ≤ 8 (decode: G rows), else 64; the key axis split
-    across blocks until the launch has ``TARGET_BLOCKS`` blocks (flash-
-    decoding), and at least ``min_split`` ways."""
-    bq = 8 if S <= 8 else 64
+         ) -> tuple[int, int]:
+    """(nsplit, tiles_per_split) of the online-softmax sweep: the key axis
+    split across blocks until a launch at ``static_bq(S)`` rows a block has
+    ``TARGET_BLOCKS`` blocks (flash-decoding), and at least ``min_split``
+    ways.  A function of the shape alone, whatever rows a block the launch
+    takes, so every row's keys are summed in the same splits."""
     ntiles = max(1, math.ceil(Lk / KEY_TILE))
-    blocks = math.ceil(S / bq) * P * math.ceil(Dv / VALUE_TILE)
+    blocks = math.ceil(S / static_bq(S)) * P * math.ceil(Dv / VALUE_TILE)
     want = min(ntiles, max(min_split, math.ceil(TARGET_BLOCKS / max(blocks, 1))))
     per = math.ceil(ntiles / want)
-    return bq, math.ceil(ntiles / per), per
+    return math.ceil(ntiles / per), per
+
+
+@functools.cache
+def _fits(bq: int, Dh: int, variant: int, device_index: int) -> bool:
+    flag = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _raise_on(_lib().repro_landmark_check(bq, Dh, variant, ctypes.byref(flag)),
+                  "repro_landmark_check")
+    return bool(flag.value)
+
+
+def fits(bq: int, Dh: int, dtype: torch.dtype, out_dtype: torch.dtype,
+         device: torch.device) -> bool:
+    """Whether the sweep with ``bq`` rows a block (one of ``BLOCK_ROWS``)
+    can launch on ``device`` for head dim Dh and these input and output
+    dtypes: its shared memory within the device's opt-in limit and its
+    registers leaving room for the block's threads (``cudaFuncGetAttributes``)."""
+    if bq not in BLOCK_ROWS:
+        return False
+    variant = 0 if dtype == torch.float32 else (1 if out_dtype == dtype else 2)
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return _fits(bq, Dh, variant, index)
+
+
+def _block_rows(b: int, name: str) -> int:
+    if b not in BLOCK_ROWS:
+        raise ValueError(f"{name}={b}: the kernels take {BLOCK_ROWS} rows a block")
+    return b
 
 
 def _scratch(nsplit: int, rows: int, Dv: int, dev):
@@ -99,10 +143,12 @@ def _limits(P: int, rows: int, Dh: int, Dv: int) -> None:
 
 
 def landmark_attention(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
-                       bias: torch.Tensor | None = None) -> torch.Tensor:
+                       bias: torch.Tensor | None = None, *,
+                       bq: int | None = None) -> torch.Tensor:
     """softmax(q k̃ᵀ/√Dh + bias)·M on the card for P problems: q (P, S, Dh),
     kt (P, L, Dh), M (P, L, Dv), one dtype (float32 or bfloat16), bias
-    (P, L) float32 or None.  Returns (P, S, Dv) in q's dtype, computed in
+    (P, L) float32 or None; ``bq`` query rows a block (default
+    ``static_bq(S)``).  Returns (P, S, Dv) in q's dtype, computed in
     float32.  Replaces LA:54."""
     dev = _cuda_device(q)
     P, S, Dh = q.shape
@@ -113,33 +159,35 @@ def landmark_attention(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
     if bias is not None:
         _check("bias", bias, (P, L), (torch.float32,), dev)
     _limits(P, S, Dh, Dv)
+    bq = _block_rows(static_bq(S) if bq is None else bq, "bq")
     out = torch.empty((P, S, Dv), dtype=q.dtype, device=dev)
     if P == 0 or S == 0 or Dv == 0:
         return out
     if L == 0:
         raise ValueError("landmark_attention needs at least one landmark")
-    bq, nsplit, per = plan(P, S, L, Dv)
+    nsplit, per = plan(P, S, L, Dv)
     pm, pd, pacc = _scratch(nsplit, P * S, Dv, dev)
     with torch.cuda.device(dev):
         err = _lib().repro_landmark_attention(
             q.data_ptr(), kt.data_ptr(), M.data_ptr(), _ptr(bias), out.data_ptr(),
             _ptr(pm), _ptr(pd), _ptr(pacc), P, S, L, Dh, Dv, nsplit, per, bq,
             1.0 / math.sqrt(Dh), int(q.dtype == torch.bfloat16), _stream(dev))
-    landmark_attention.launches += 1
+    autotune.count_launch(landmark_attention)
     _raise_on(err, "landmark_attention")
     return out
 
 
 def landmark_stats(qt: torch.Tensor, kt: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor, *, n_valid: int | None = None,
-                   l_valid: int | None = None
+                   l_valid: int | None = None, bs: int | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """(W, BmV) on the card for P problems: qt, kt (P, L, Dh), k (P, S, Dh),
     v (P, S, Dv), one dtype.  W = softmax(q̃k̃ᵀ/√Dh) with landmark columns
     ≥ ``l_valid`` masked; BmV = softmax(q̃Kᵀ/√Dh)·V with keys ≥ ``n_valid``
-    masked (both default to the full extent).  Returns (W (P, L, L),
-    BmV (P, L, Dv)) float32.  Replaces LA:138: W once per problem, then the
-    sweep over S split across blocks and combined in split order."""
+    masked (both default to the full extent); ``bs`` landmark rows a block
+    of the BmV sweep (default 64).  Returns (W (P, L, L), BmV (P, L, Dv))
+    float32.  Replaces LA:138: W once per problem, then the sweep over S
+    split across blocks and combined in split order."""
     dev = _cuda_device(qt)
     P, L, Dh = qt.shape
     S, Dv = v.shape[1:]
@@ -153,19 +201,21 @@ def landmark_stats(qt: torch.Tensor, kt: torch.Tensor, k: torch.Tensor,
     if not (0 < n_valid <= S and 0 < l_valid <= L):
         raise ValueError(f"need 0 < n_valid ≤ {S} and 0 < l_valid ≤ {L}, got "
                          f"{n_valid}, {l_valid}")
+    bs = _block_rows(autotune.STATIC_TABLE["landmark_stats"][0] if bs is None else bs,
+                     "bs")
     W = torch.empty((P, L, L), dtype=torch.float32, device=dev)
     BmV = torch.empty((P, L, Dv), dtype=torch.float32, device=dev)
     if P == 0 or Dv == 0:
         return W, BmV
-    _, nsplit, per = plan(P, L, S, Dv, min_split=2)
+    nsplit, per = plan(P, L, S, Dv, min_split=2)
     pm, pd, pacc = _scratch(nsplit, P * L, Dv, dev)
     with torch.cuda.device(dev):
         err = _lib().repro_landmark_stats(
             qt.data_ptr(), kt.data_ptr(), k.data_ptr(), v.data_ptr(), W.data_ptr(),
             BmV.data_ptr(), _ptr(pm), _ptr(pd), _ptr(pacc), P, L, S, Dh, Dv, n_valid,
-            l_valid, nsplit, per, 1.0 / math.sqrt(Dh),
+            l_valid, nsplit, per, bs, 1.0 / math.sqrt(Dh),
             int(qt.dtype == torch.bfloat16), _stream(dev))
-    landmark_stats.launches += 1
+    autotune.count_launch(landmark_stats)
     _raise_on(err, "landmark_stats")
     return W, BmV
 

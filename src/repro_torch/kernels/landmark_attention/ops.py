@@ -6,8 +6,12 @@ kernel (``kernel``), whose failures propagate.  As in the reference's ops,
 the landmark axis of ``landmark_attend`` is padded to a multiple of 8 with
 −1e30 bias, so a padded landmark carries zero weight wherever a real one
 carries any.  Query rows and keys are not padded: the kernels mask their
-own ragged edges.  Launch shapes are fixed functions of the input shapes
-(the reference's measured autotune cache is not ported).
+own ragged edges.  The rows a block come from the measured autotune cache
+of the accum_apply kernels (``autotune``), under the reference's kinds
+``landmark_attention`` (bq) and ``landmark_stats`` (bs): the first CUDA call
+at a key times the candidates the device can launch (``kernel.fits``) and
+persists the winner.  The key splits are fixed by the shape, so every
+candidate gives the same bits.
 
 ``accum_attention_kernel`` is the full pipeline: landmark pools, then ONE
 fused sweep over S (``landmark_stats``: W and the online-softmax Bm·V, the
@@ -19,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.sketch import AccumSketch
+from repro_torch.kernels.accum_apply import autotune
 from repro_torch.kernels.landmark_attention import kernel as K_
 from repro_torch.kernels.landmark_attention import ref
 from repro_torch.resilience import faults
@@ -32,6 +37,15 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 def _batched(x: torch.Tensor, ndim: int) -> torch.Tensor:
     return x if x.ndim == ndim else x[None]
+
+
+def _bq_candidates(S: int, fallback: tuple[int], Dh: int, dtype: torch.dtype,
+                   out_dtype: torch.dtype, device) -> list[tuple[int]]:
+    """The fallback first, then the other rows a block the kernels take,
+    where S has more than 8 rows; each kept only where it fits the device."""
+    rows = (fallback[0],) if S <= 8 else (fallback[0], *K_.BLOCK_ROWS)
+    return [(b,) for b in dict.fromkeys(rows)
+            if K_.fits(b, Dh, dtype, out_dtype, device)]
 
 
 def landmark_attend(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
@@ -53,12 +67,19 @@ def landmark_attend(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
         if bias is None:
             bias = torch.zeros((P, L), dtype=torch.float32, device=q.device)
         bias = torch.nn.functional.pad(bias, (0, pad), value=NEG_INF)
-    if _on_cuda(q):
-        out = K_.landmark_attention(
-            q.contiguous(), kt.to(q.dtype).contiguous(), M.to(q.dtype).contiguous(),
-            None if bias is None else bias.contiguous())
-    else:
+    if not _on_cuda(q):
         out = ref.landmark_attention_ref(q, kt, M, bias)
+        return out[0] if single else out
+    args = (q.contiguous(), kt.to(q.dtype).contiguous(), M.to(q.dtype).contiguous(),
+            None if bias is None else bias.contiguous())
+    S, Dh = q.shape[1:]
+    fb = (K_.static_bq(S),)
+    (bq,) = autotune.measured_blocks(
+        "landmark_attention", (P, S, Dh, M.shape[1], M.shape[2]), q.dtype, q.device,
+        _bq_candidates(S, fb, Dh, q.dtype, q.dtype, q.device),
+        lambda c: K_.landmark_attention(*args, bq=c[0]), fb,
+        concrete=autotune.is_concrete(*args[:3]))
+    out = K_.landmark_attention(*args, bq=bq)
     return out[0] if single else out
 
 
@@ -71,12 +92,20 @@ def landmark_stats_fused(qt: torch.Tensor, kt: torch.Tensor, k: torch.Tensor,
     BmV (…, L, Dv)) float32."""
     single = qt.ndim == 2
     qt, kt, k, v = (_batched(x, 3) for x in (qt, kt, k, v))
-    if _on_cuda(qt):
-        dt = qt.dtype
-        W, BmV = K_.landmark_stats(qt.contiguous(), kt.to(dt).contiguous(),
-                                   k.to(dt).contiguous(), v.to(dt).contiguous())
-    else:
+    if not _on_cuda(qt):
         W, BmV = ref.landmark_stats_ref(qt, kt, k, v)
+        return (W[0], BmV[0]) if single else (W, BmV)
+    dt = qt.dtype
+    args = (qt.contiguous(), kt.to(dt).contiguous(), k.to(dt).contiguous(),
+            v.to(dt).contiguous())
+    (P, L, Dh), (S, Dv) = qt.shape, v.shape[1:]
+    fb = autotune.STATIC_TABLE["landmark_stats"]
+    (bs,) = autotune.measured_blocks(
+        "landmark_stats", (P, S, Dh, L, Dv), dt, qt.device,
+        _bq_candidates(L, fb, Dh, dt, torch.float32, qt.device),
+        lambda c: K_.landmark_stats(*args, bs=c[0]), fb,
+        concrete=autotune.is_concrete(*args))
+    W, BmV = K_.landmark_stats(*args, bs=bs)
     return (W[0], BmV[0]) if single else (W, BmV)
 
 

@@ -36,13 +36,13 @@ from typing import Any
 import torch
 
 # the reference's six sites; the port visits kernel.dispatch, ckpt.write,
-# solve.cholesky and decode.step (the streaming rung and the autotune cache
-# are not ported), and accepts plans naming any of the six
+# autotune.load, solve.cholesky and decode.step (the streaming rung is not
+# ported), and accepts plans naming any of the six
 SITES: dict[str, str] = {
     "kernel.dispatch": "kernel entry points (kernels/landmark_attention/ops.py)",
     "kernel.stream": "the reference's streaming rung (not ported)",
     "ckpt.write": "one checkpoint tmp-write + rename attempt (checkpoint/ckpt.py)",
-    "autotune.load": "the reference's autotune cache load (not ported)",
+    "autotune.load": "one autotune cache file load (kernels/accum_apply/autotune.py)",
     "solve.cholesky": "the PSD solve's input (resilience.degrade.solve_psd_ladder)",
     "decode.step": "one decode chunk of Engine.generate (serve/engine.py)",
 }

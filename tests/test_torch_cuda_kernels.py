@@ -10,6 +10,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import make_accum_sketch  # noqa: E402
 from repro_torch.core.kernels_math import get_kernel  # noqa: E402
+from repro_torch.kernels.accum_apply import autotune as AT  # noqa: E402
 from repro_torch.kernels.accum_apply import kernel as KT  # noqa: E402
 from repro_torch.kernels.accum_apply import ops as OT  # noqa: E402
 from repro_torch.kernels.accum_apply import ref as RT  # noqa: E402
@@ -84,7 +85,8 @@ def test_wrappers_route_cuda_tensors_to_the_kernels(cuda_device):
     OT.sketch_right_kernel(K, sk)
     OT.sketch_step_kernel(K, sk.indices[0], sk.coef[0], C, 0.5)
     OT.accum_grow_kernel(K, sk.indices, sk.coef, C, 0.5)
-    assert [f.launches for f in KT.KERNELS] == [1] * 6
+    OT.accum_apply_scalar(K, sk.indices, sk.coef, bm=100, bd=8)
+    assert [f.launches for f in KT.KERNELS] == [1] * 7
     # the same calls on bad input raise instead of falling back
     with pytest.raises(TypeError):
         OT.sketch_left_kernel(sk, C.double())
@@ -141,6 +143,131 @@ def test_cuda_engine_routes_match_plain(cuda_device):
         got, plain = grow(st, True), grow(st, False)
         for x, y in ((got.C, plain.C), (got.W, plain.W)):
             assert ((x - y).norm() / y.norm()).item() < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,N,d,m,bm,bd", [(4096, 8192, 64, 4, 256, 8),
+                                           (256, 512, 32, 4, 32, 8),
+                                           (64, 128, 16, 3, 256, 16),
+                                           (1000, 999, 24, 2, 8, 24)])
+def test_cuda_scalar_kernel_matches_plain(cuda_device, R, N, d, m, bm, bd, dtype):
+    """accum_apply_scalar against its plain version (the reference's tol:
+    1e-5 float32, 2e-2 bfloat16), and against accum_apply."""
+    g = torch.Generator().manual_seed(R + d)
+    K = torch.randn((R, N), generator=g).to(cuda_device, dtype)
+    idx = torch.randint(0, N, (m, d), generator=g, dtype=torch.int32).to(cuda_device)
+    coef = torch.randn((m, d), generator=g).to(cuda_device)
+    before = KT.accum_apply_scalar.launches
+    out = KT.accum_apply_scalar(K, idx, coef, bm=bm, bd=bd)
+    assert out.dtype == dtype and KT.accum_apply_scalar.launches == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    _close(out, RT.accum_apply_ref(K, idx, coef), tol)
+    _close(out, KT.accum_apply(K, idx, coef), tol)
+    with pytest.raises(ValueError, match="R % bm"):
+        KT.accum_apply_scalar(K[:R - 1], idx, coef, bm=min(bm, R - 2), bd=bd)
+    torch.cuda.synchronize()
+
+
+def _candidates_equal_static(run, cands, static):
+    """Every candidate geometry's outputs equal the static geometry's bit for
+    bit: the geometry picks a block, never a sum's order."""
+    want = run(static)
+    for c in cands:
+        for x, y in zip(run(c), want):
+            assert torch.equal(x, y), f"geometry {c} differs from {static}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_autotune_candidates_match_static_accum(cuda_device, dtype):
+    g = torch.Generator().manual_seed(11)
+    n, d, m, B = 1000, 24, 4, 5
+    X = torch.rand((n, 3), generator=g).to(cuda_device, dtype)
+    sk = make_accum_sketch(g, n, d, m, device=cuda_device)
+    idx, cf = sk.indices, sk.coef
+    L = X.index_select(0, idx.reshape(-1))
+    K = get_kernel("gaussian", 0.5)(X.float(), X.float()).to(dtype)
+    Cin = torch.randn((n, d), generator=g).to(cuda_device)
+    gather = OT._gemm_candidates(n, (64,))
+    assert len(gather) == 3
+    _candidates_equal_static(
+        lambda c: (KT.matfree_apply(X, L, cf, kernel="gaussian", bandwidth=0.5, bm=c[0]),),
+        OT._rows_candidates(OT.MATFREE_ROWS, n, (64,)), (64,))
+    _candidates_equal_static(lambda c: KT.accum_sketch_both(K, idx, cf, bm=c[0]),
+                             gather, (64,))
+    _candidates_equal_static(lambda c: (KT.accum_apply(K, idx, cf, bm=c[0]),), gather, (64,))
+    _candidates_equal_static(
+        lambda c: (KT.accum_step_slab(K, idx[:1].contiguous(), cf[:1].contiguous(), Cin,
+                                      0.7, bm=c[0]),), gather, (64,))
+    _candidates_equal_static(
+        lambda c: KT.accum_grow_slabs(K, idx[:B].contiguous(), cf[:B].contiguous(), Cin,
+                                      0.7, bm=c[0]), gather, (64,))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,S,L,Dh,Dv", [(4, 300, 77, 64, 130), (32, 4, 1024, 128, 128),
+                                         (2, 1030, 256, 128, 128)])
+def test_cuda_autotune_candidates_match_static_landmark(cuda_device, P, S, L, Dh, Dv,
+                                                        dtype):
+    """Every rows-a-block candidate the device can launch gives the static
+    geometry's bits: landmark_attention over its query rows, landmark_stats'
+    BmV sweep over its landmark rows (W has one geometry)."""
+    g = torch.Generator().manual_seed(P + S)
+    q, kt = _randn(g, (P, S, Dh), cuda_device, dtype), _randn(g, (P, L, Dh), cuda_device, dtype)
+    M = _randn(g, (P, L, Dv), cuda_device, dtype)
+    bias = torch.log(torch.rand((P, L), generator=g) + 0.1).to(cuda_device)
+    fb = (LK.static_bq(S),)
+    cands = LO._bq_candidates(S, fb, Dh, dtype, dtype, cuda_device)
+    assert cands[0] == fb and all(LK.fits(c[0], Dh, dtype, dtype, cuda_device)
+                                  for c in cands)
+    _candidates_equal_static(lambda c: (LK.landmark_attention(q, kt, M, bias, bq=c[0]),),
+                             cands, fb)
+    k, v = _randn(g, (P, S, Dh), cuda_device, dtype), _randn(g, (P, S, Dv), cuda_device, dtype)
+    cands = LO._bq_candidates(L, (64,), Dh, dtype, torch.float32, cuda_device)
+    _candidates_equal_static(lambda c: LK.landmark_stats(kt, kt, k, v, bs=c[0]), cands, (64,))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_measuring_counts_apart_and_writes_only_the_winner(cuda_device, tmp_path,
+                                                                monkeypatch):
+    """A cold cache on the card: the first call measures (its launches are
+    counted in MEASURE_LAUNCHES, not the kernel's), persists the winner, and
+    writes the caller's ``out`` once — with the static geometry's bits; the
+    second call is a cache hit that times nothing."""
+    from repro_torch.core import apply as A
+
+    monkeypatch.setenv(AT.ENV_CACHE, str(tmp_path / "at.json"))
+    monkeypatch.setenv(AT.ENV_GATE, "1")
+    g = torch.Generator().manual_seed(3)
+    n, d, B = 2048, 32, 4
+    K = torch.randn((n, n), generator=g).to(cuda_device)
+    st = A.accum_init(torch.Generator().manual_seed(0), n, d, 8, device=cuda_device)
+    idx_blk, coef_blk, a = A.batch_pieces(st, B)
+    want = KT.accum_grow_slabs(K, idx_blk.to(torch.int32).contiguous(), coef_blk.float(),
+                               st.C, a)
+    KT.reset_launches()
+    measured = sum(AT.MEASURE_LAUNCHES.values())
+    C = st.C.clone()
+    got = OT.accum_grow_kernel(K, idx_blk, coef_blk, C, a, out=C)
+    assert got[0].data_ptr() == C.data_ptr()
+    assert KT.accum_grow_slabs.launches == 1
+    assert sum(AT.MEASURE_LAUNCHES.values()) > measured
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    key = (n, n, d, B)
+    assert AT.lookup("accum_grow", key, torch.float32, cuda_device, arity=1) is not None
+
+    def no_timing(*a):
+        raise AssertionError("a cache hit timed a candidate")
+
+    monkeypatch.setattr(AT, "_time", no_timing)
+    C2 = st.C.clone()
+    OT.accum_grow_kernel(K, idx_blk, coef_blk, C2, a, out=C2)
+    assert torch.equal(C2, want[0]) and KT.accum_grow_slabs.launches == 2
 
 
 # --------------------------------------------------------------------------- #

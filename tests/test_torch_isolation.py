@@ -75,7 +75,9 @@ def test_kernel_launchers_refuse_cpu_tensors():
         KT.accum_step_slab(torch.zeros(8, 8), idx[:1], coef[:1], torch.zeros(8, 4), 0.5)
     with pytest.raises(ValueError, match="CUDA tensors"):
         KT.accum_grow_slabs(torch.zeros(8, 8), idx, coef, torch.zeros(8, 4), 0.5)
-    assert [f.launches for f in KT.KERNELS] == [0] * 6
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        KT.accum_apply_scalar(torch.zeros(8, 8), idx, coef)
+    assert [f.launches for f in KT.KERNELS] == [0] * 7
     q = torch.zeros(2, 4, 8)
     with pytest.raises(ValueError, match="CUDA tensors"):
         LK.landmark_attention(q, q, q)
