@@ -9,7 +9,9 @@
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and times both beside the kernel's bound:
    CUDA events around a run of back-to-back calls, and the device's own
-   time for the same run from ``torch.profiler`` (see ``timed``).
+   time for the same run from ``torch.profiler`` (see ``timed``).  The
+   tensor-core attention sweeps also print their TFLOP/s and their share of
+   the IEEE-FMA bound and of the 3×TF32 bound (``bound_tc_ms``, ``rate``).
    Each autotuned kernel's candidate geometries (rows a block) are held
    against its static geometry bit for bit and timed, and the measured
    autotune cache chooses one at the row's shape (``geometry``).
@@ -39,7 +41,8 @@
        float32 caches), sketched ≡ exact decode with identity slots
        (teacher-forced logits), and a killed generate resumed bitwise;
    (l) accum_attention at B·H = 32, S = 32768, d = 1024, m = 8: the kernel
-       route against the plain one.
+       route against the plain one, and the kernel route's device time by
+       kernel under the profiler.
    Then path (m), the K·S baseline of benchmarks/kernel_bench.py:
    ``sketch_right_kernel`` (accum_apply at the cache's geometry) against
    ``accum_apply_scalar`` (the seed's scalar loop, bm=256, bd=8) at the
@@ -71,10 +74,12 @@ import tempfile
 import time
 from pathlib import Path
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
-# float32 operations/s outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s,
+# float32 operations/s outside the tensor cores, and TF32 operations/s on
+# the tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 494.7e12
 
 # the main paths' sizes: operator fit (C is 512 MiB), predict rows, dense K,
 # the dense K of the unit schedule (the widest K of one accum_step_slab)
@@ -184,6 +189,17 @@ def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
     """The least time for the work in ms, and whether bytes or operations set it."""
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def rate(name: str, ms: float, flops: float, b_fma: float, b_tc: float) -> dict:
+    """Achieved TFLOP/s of a tensor-core sweep and its share of both bounds:
+    IEEE float32 FMA, and 3×TF32 (three tensor-core products a product)."""
+    tflops = flops / ms / 1e9
+    print(f"  {name}: {tflops:.2f} TFLOP/s of float32-accurate work; "
+          f"{b_fma / ms:.1%} of the FMA bound ({b_fma:.3f} ms), {b_tc / ms:.1%} of the "
+          f"3×TF32 bound ({b_tc:.3f} ms)")
+    return dict(bound_tc_ms=b_tc, tflops=tflops, share_of_bound=b_fma / ms,
+                share_of_bound_tc=b_tc / ms)
 
 
 def wall(torch, fn):
@@ -381,7 +397,8 @@ def main() -> int:
     rows["accum_apply_left"] = dict(replaces=f"{TPU}:229", max_abs_err=ea,
                                     max_rel_err=er, ms=ms, device_ms=dms,
                                     plain_ms=pms, bound_ms=b, bound_by=by,
-                                    library_ms=lms, geometry_by="fixed")
+                                    library_ms=lms, library_device_ms=ldms,
+                                    geometry_by="fixed")
     out = KN.accum_apply_left(Cb.bfloat16(), idx, cf)
     ea, er, ok = close(out, ref.sketch_left_ref(idx, cf, Cb.bfloat16()), 3e-2)
     check(ok, f"accum_apply_left bf16: max abs {ea:.3e}, /max|plain| {er:.3e} "
@@ -574,8 +591,10 @@ def main() -> int:
     rows["landmark_attention"] = dict(replaces=f"{LTPU}:54", max_abs_err=ea,
                                       max_rel_err=er, ms=ms, device_ms=dms,
                                       plain_ms=pms, bound_ms=b, bound_by=by,
-                                      library_ms=lms, library="SDPA with the bias as "
-                                      "attn_mask", shape="decode P=32 G=4 L=1024")
+                                      library_ms=lms, library_device_ms=ldms,
+                                      library="SDPA with the bias as attn_mask",
+                                      shape="decode P=32 G=4 L=1024",
+                                      bound_tc_ms=None)   # the decode sweep: IEEE FMA
     rows["landmark_attention"].update(geometry(
         "landmark_attention decode", "landmark_attention", (P, G, Dh, Lm, Dh), torch.float32,
         LO._bq_candidates(G, (LK.static_bq(G),), Dh, torch.float32, torch.float32, dev),
@@ -591,13 +610,15 @@ def main() -> int:
     ms, dms = timed(torch, lambda: LK.landmark_attention(qf, ktd, Mf))
     pms, _ = timed(torch, lambda: LR.landmark_attention_ref(qf, ktd, Mf))
     lms, ldms = timed(torch, lambda: sdpa(qf, ktd, Mf))
-    b, by = bound_ms((qf.numel() + ktd.numel() + Mf.numel() + out.numel()) * 4,
-                     2 * P * S_ATT * Lm * 2 * Dh)
+    flops = 2 * P * S_ATT * Lm * 2 * Dh
+    b, by = bound_ms((qf.numel() + ktd.numel() + Mf.numel() + out.numel()) * 4, flops)
     print(f"  landmark_attention F-stage: {ms:.4f} ms (device {dms}), plain {pms:.4f} ms, "
           f"bound {b:.5f} ms by {by}, SDPA {lms:.4f} ms (device {ldms})")
     rows["landmark_attention"]["f_stage"] = dict(
         shape=f"P={P} S={S_ATT} L={Lm}", max_abs_err=ea, ms=ms, device_ms=dms,
-        plain_ms=pms, bound_ms=b, bound_by=by, library_ms=lms)
+        plain_ms=pms, bound_ms=b, bound_by=by, library_ms=lms, library_device_ms=ldms,
+        **rate("landmark_attention F-stage", ms, flops, b,
+               3 * flops / TF32_OPS_PER_S * 1e3))
     rows["landmark_attention"]["f_stage"].update(geometry(
         "landmark_attention F-stage", "landmark_attention", (P, S_ATT, Dh, Lm, Dh),
         torch.float32,
@@ -622,16 +643,22 @@ def main() -> int:
                                                         l_valid=lv))
     kv_, vv_ = kk[:, :nv], vv[:, :nv]
     lms, ldms = timed(torch, lambda: sdpa(qt, kv_, vv_))
+    # the BmV sweep on the tensor cores, the W half on IEEE FMA
+    flops_b, flops_w = 2 * P * Lm * nv * 2 * Dh, 2 * P * Lm * lv * Dh
     b, by = bound_ms((2 * P * Lm * Dh + 2 * P * nv * Dh + P * Lm * Lm + P * Lm * Dh) * 4,
-                     2 * P * Lm * nv * 2 * Dh + 2 * P * Lm * lv * Dh)
+                     flops_b + flops_w)
     print(f"  landmark_stats: {ms:.4f} ms (device {dms}), plain {pms:.4f} ms, bound "
           f"{b:.5f} ms by {by}; SDPA(q̃, K, V), the BmV half only: {lms:.4f} ms "
           f"(device {ldms})")
     rows["landmark_stats"] = dict(replaces=f"{LTPU}:138", max_abs_err=max(eW, eB),
                                   max_rel_err=max(rW, rB), ms=ms, device_ms=dms,
                                   plain_ms=pms, bound_ms=b, bound_by=by, library_ms=lms,
+                                  library_device_ms=ldms,
                                   library="SDPA(q̃, K, V): the BmV half only",
-                                  shape=f"P={P} L={Lm} S={S_ATT}")
+                                  shape=f"P={P} L={Lm} S={S_ATT}",
+                                  **rate("landmark_stats", ms, flops_b + flops_w, b,
+                                         (3 * flops_b / TF32_OPS_PER_S
+                                          + flops_w / F32_OPS_PER_S) * 1e3))
     # the cache chooses at the unmasked shape (its entry point takes no
     # masks); the masked launch is timed at its choice
     rows["landmark_stats"].update(geometry(
@@ -1070,6 +1097,11 @@ def main() -> int:
         print(f"  (l) accum_attention B·H={H_ATT} S={S_ATT} d={d_att} m={m_att}: kernel route "
               f"{ta * 1e3:.1f} ms ({n_ls} landmark_stats + {n_la} landmark_attention "
               f"launches), plain route {tpa * 1e3:.1f} ms")
+        # where the kernel route's time goes, warm: device time by kernel
+        with off_path():
+            wl, dl, top = profiled(torch, lambda: accum_attention(qa, ka, va, ska))
+        print(f"  (l) kernel route under the profiler: {wl:.1f} ms wall, {dl:.1f} ms device; "
+              f"top device kernels (ms) {top}")
         check(bool(out_a.isfinite().all()) and ra <= 1e-3 and n_la == n_ls == 1,
               f"(l) kernel route vs plain: rel {ra:.3e} (tol 1e-3)")
         held["l"] = out_a

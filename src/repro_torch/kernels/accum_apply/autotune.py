@@ -52,15 +52,16 @@ from repro_torch._util import env_flag
 ENV_CACHE = "REPRO_AUTOTUNE_CACHE"
 ENV_GATE = "REPRO_AUTOTUNE"
 
-# the geometry the kernels launched with before the cache existed — the
-# fallback when the cache has no entry and measuring is off
+# the fallback geometry when the cache has no entry and measuring is off:
+# what the gathers launched with before the cache existed, and the faster
+# of the tensor-core attention sweep's two block sizes on the H100
 STATIC_TABLE: dict[str, tuple[int, ...]] = {
-    "matfree_cols": (64,),        # matfree_apply: rows of X a block
-    "accum_apply": (64,),         # the gather of accum_apply / accum_step_slab: rows a block
-    "sketch_both": (64,),         # accum_sketch_both's gather: rows a block
-    "accum_grow": (64,),          # accum_grow_slabs' gather: rows a block
-    "landmark_attention": (64,),  # query rows a block (8 where S ≤ 8, decode)
-    "landmark_stats": (64,),      # landmark rows a block of the BmV sweep
+    "matfree_cols": (64,),         # matfree_apply: rows of X a block
+    "accum_apply": (64,),          # the gather of accum_apply / accum_step_slab: rows a block
+    "sketch_both": (64,),          # accum_sketch_both's gather: rows a block
+    "accum_grow": (64,),           # accum_grow_slabs' gather: rows a block
+    "landmark_attention": (128,),  # query rows a block (8 where S ≤ 8, decode)
+    "landmark_stats": (128,),      # landmark rows a block of the BmV sweep (8 where L ≤ 8)
 }
 
 # a candidate's timed run lasts at least this long (a single launch of the
@@ -233,16 +234,18 @@ def measured_blocks(
 ) -> tuple[int, ...]:
     """The autotune decision for one kernel call site.
 
-    Resolution order: cache hit → (if ``concrete`` inputs on a device where
-    the gate allows) time ``bench_fn(blocks)`` for each candidate, persist
-    and return the winner → ``fallback`` (the static geometry).  The caller
-    drops candidates the device cannot launch before passing them; a single
+    Resolution order: cache hit among ``candidates`` → (if ``concrete``
+    inputs on a device where the gate allows) time ``bench_fn(blocks)`` for
+    each candidate, persist and return the winner → ``fallback`` (the static
+    geometry).  A hit that is not a candidate (a file written when the
+    kernel took other geometries) counts as a miss.  The caller drops
+    candidates the device cannot launch before passing them; a single
     candidate is returned untimed.  ``bench_fn`` runs the caller's kernel on
     its real inputs into scratch outputs; ties go to the earlier candidate."""
-    hit = lookup(kind, shape_key, dtype, device, arity=len(fallback))
-    if hit is not None:
-        return hit
     candidates = list(dict.fromkeys(tuple(c) for c in candidates))
+    hit = lookup(kind, shape_key, dtype, device, arity=len(fallback))
+    if hit is not None and hit in candidates:
+        return hit
     if not concrete or not measure_enabled(device) or not candidates:
         return fallback
     if len(candidates) == 1:

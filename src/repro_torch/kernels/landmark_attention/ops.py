@@ -10,8 +10,9 @@ own ragged edges.  The rows a block come from the measured autotune cache
 of the accum_apply kernels (``autotune``), under the reference's kinds
 ``landmark_attention`` (bq) and ``landmark_stats`` (bs): the first CUDA call
 at a key times the candidates the device can launch (``kernel.fits``) and
-persists the winner.  The key splits are fixed by the shape, so every
-candidate gives the same bits.
+persists the winner; without a measurement the static geometry that fits
+(``kernel.static_rows``) launches.  The key tile and splits are fixed by
+the shape, so every candidate gives the same bits.
 
 ``accum_attention_kernel`` is the full pipeline: landmark pools, then ONE
 fused sweep over S (``landmark_stats``: W and the online-softmax Bm·V, the
@@ -41,9 +42,10 @@ def _batched(x: torch.Tensor, ndim: int) -> torch.Tensor:
 
 def _bq_candidates(S: int, fallback: tuple[int], Dh: int, dtype: torch.dtype,
                    out_dtype: torch.dtype, device) -> list[tuple[int]]:
-    """The fallback first, then the other rows a block the kernels take,
-    where S has more than 8 rows; each kept only where it fits the device."""
-    rows = (fallback[0],) if S <= 8 else (fallback[0], *K_.BLOCK_ROWS)
+    """The fallback first, then the other rows a block the sweep over S rows
+    takes (``kernel.block_rows``: 8 alone where S ≤ 8, else 64 and 128);
+    each kept only where it fits the device."""
+    rows = (fallback[0], *K_.block_rows(S))
     return [(b,) for b in dict.fromkeys(rows)
             if K_.fits(b, Dh, dtype, out_dtype, device)]
 
@@ -73,7 +75,7 @@ def landmark_attend(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
     args = (q.contiguous(), kt.to(q.dtype).contiguous(), M.to(q.dtype).contiguous(),
             None if bias is None else bias.contiguous())
     S, Dh = q.shape[1:]
-    fb = (K_.static_bq(S),)
+    fb = (K_.static_rows(S, Dh, q.dtype, q.dtype, q.device),)
     (bq,) = autotune.measured_blocks(
         "landmark_attention", (P, S, Dh, M.shape[1], M.shape[2]), q.dtype, q.device,
         _bq_candidates(S, fb, Dh, q.dtype, q.dtype, q.device),
@@ -99,7 +101,7 @@ def landmark_stats_fused(qt: torch.Tensor, kt: torch.Tensor, k: torch.Tensor,
     args = (qt.contiguous(), kt.to(dt).contiguous(), k.to(dt).contiguous(),
             v.to(dt).contiguous())
     (P, L, Dh), (S, Dv) = qt.shape, v.shape[1:]
-    fb = autotune.STATIC_TABLE["landmark_stats"]
+    fb = (K_.static_rows(L, Dh, dt, torch.float32, qt.device, "landmark_stats"),)
     (bs,) = autotune.measured_blocks(
         "landmark_stats", (P, S, Dh, L, Dv), dt, qt.device,
         _bq_candidates(L, fb, Dh, dt, torch.float32, qt.device),

@@ -191,6 +191,31 @@ def test_single_candidate_is_not_timed(monkeypatch):
     assert calls == []
 
 
+@pytest.mark.parametrize("kind,key,stale", [
+    ("accum_apply", SHAPE, 8),
+    ("landmark_attention", (32, 32768, 128, 1024, 128), 8)])
+def test_stale_hit_outside_the_candidates_is_a_miss(tmp_path, monkeypatch, kind, key,
+                                                    stale):
+    """An entry that is not among the caller's candidates (written when the
+    kernel took other geometries) is never returned: with the gate off the
+    call takes the fallback; with it on, it measures the candidates and
+    records the winner in the entry's place."""
+    path = tmp_path / "at.json"
+    path.write_text(json.dumps({AT._key(kind, key, torch.float32, CPU): [stale]}))
+    monkeypatch.setenv(AT.ENV_CACHE, str(path))
+    monkeypatch.setenv(AT.ENV_GATE, "0")
+    calls = []
+    cands = [(64,), (128,)]
+    assert AT.measured_blocks(kind, key, torch.float32, CPU, cands, _bench(calls), (64,),
+                              concrete=True) == (64,)
+    assert calls == []
+    monkeypatch.setenv(AT.ENV_GATE, "1")
+    got = AT.measured_blocks(kind, key, torch.float32, CPU, cands,
+                             _bench(calls, slow={(64,)}), (64,), concrete=True)
+    assert got == (128,) and set(calls) == set(cands)
+    assert json.loads(path.read_text()) == {AT._key(kind, key, torch.float32, CPU): [128]}
+
+
 def test_corrupt_file_falls_back_with_health_record(tmp_path, monkeypatch):
     path = tmp_path / "at.json"
     path.write_text("{not json at all")
@@ -276,25 +301,35 @@ def test_exception_in_a_timed_launch_propagates(tmp_path, monkeypatch):
 
 def test_gate_off_and_empty_cache_give_the_static_geometry(monkeypatch):
     """REPRO_AUTOTUNE=0 with no cache file: every kind resolves to
-    STATIC_TABLE, which holds the fixed geometry the kernels launched with
-    before the cache (64 rows a block; 8 query rows where S ≤ 8)."""
+    STATIC_TABLE, which holds the fixed geometry the gathers launched with
+    before the cache (64 rows a block) and the tensor-core attention
+    sweep's 128 rows a block (8 query rows where S ≤ 8)."""
     monkeypatch.setenv(AT.ENV_GATE, "0")
     assert set(AT.STATIC_TABLE) == {"matfree_cols", "accum_apply", "sketch_both",
                                     "accum_grow", "landmark_attention", "landmark_stats"}
     for kind, static in AT.STATIC_TABLE.items():
-        assert static == (64,)
+        assert static == ((128,) if kind.startswith("landmark") else (64,))
         assert AT.measured_blocks(kind, (1, 2, 3), torch.float32, CPU, [(16,), (128,)],
                                   _bench([]), static, concrete=True) == static
     assert OT.autotune_blocks(*SHAPE, torch.float32, CPU) == (64,)
     assert OT.autotune_both_blocks(4096, CPU, 64, 4) == (64,)
     for kind in ("matfree_cols", "accum_apply", "sketch_both", "accum_grow"):
         assert KT._rows(None, kind) == 64
-    assert LK.static_bq(4) == 8 and LK.static_bq(9) == 64
-    # the key splits of the decode and F-stage shapes are those of the
-    # fixed-geometry plan: flash-decoding over 512 blocks, one split
-    assert LK.plan(32, 4, 1024, 128) == (16, 2)
-    assert LK.plan(32, 32768, 1024, 128) == (1, 32)
-    assert LK.plan(32, 1024, 32768, 128, min_split=2) == (2, 512)
+    assert LK.static_bq(4) == 8 and LK.static_bq(9) == 128
+    assert LK.static_bq(1024, "landmark_stats") == 128
+    # the key tile of each sweep: 32 keys on the decode sweep (S ≤ 8), 64 on
+    # the tensor-core sweep, 32 there for a float32 head dim above 192
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert LK.key_tile(4, 128, f32) == 32 and LK.key_tile(9, 128, f32) == 64
+    assert LK.key_tile(9, 192, f32) == 64 and LK.key_tile(9, 193, f32) == 32
+    assert LK.key_tile(9, 256, bf16) == 64
+    assert LK.block_rows(8) == (8,) and LK.block_rows(9) == (64, 128)
+    # the key splits of the decode, F-stage and landmark_stats shapes:
+    # flash-decoding over 512 blocks in 32-key tiles; one split of 16
+    # 64-key tiles; three splits of 171, 171 and 170 64-key tiles
+    assert LK.plan(32, 4, 1024, 128, 128, f32) == (16, 2)
+    assert LK.plan(32, 32768, 1024, 128, 128, f32) == (1, 16)
+    assert LK.plan(32, 1024, 32768, 128, 128, f32, min_split=2) == (3, 171)
 
 
 def test_cpu_route_never_measures(tmp_path, monkeypatch):

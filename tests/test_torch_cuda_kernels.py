@@ -226,8 +226,9 @@ def test_cuda_autotune_candidates_match_static_landmark(cuda_device, P, S, L, Dh
     _candidates_equal_static(lambda c: (LK.landmark_attention(q, kt, M, bias, bq=c[0]),),
                              cands, fb)
     k, v = _randn(g, (P, S, Dh), cuda_device, dtype), _randn(g, (P, S, Dv), cuda_device, dtype)
-    cands = LO._bq_candidates(L, (64,), Dh, dtype, torch.float32, cuda_device)
-    _candidates_equal_static(lambda c: LK.landmark_stats(kt, kt, k, v, bs=c[0]), cands, (64,))
+    fb = (LK.static_bq(L, "landmark_stats"),)
+    cands = LO._bq_candidates(L, fb, Dh, dtype, torch.float32, cuda_device)
+    _candidates_equal_static(lambda c: LK.landmark_stats(kt, kt, k, v, bs=c[0]), cands, fb)
     torch.cuda.synchronize()
 
 
@@ -323,6 +324,82 @@ def test_cuda_landmark_stats_matches_plain(cuda_device, P, L, S, Dh, Dv, nv, lv,
     _close(W, Wr, 1e-5)
     _close(BmV, BmVr, 1e-5)
     torch.cuda.synchronize()
+
+
+def _both_kernels(g, dev, dtype, P, S, L, Dh, Dv, n_valid, l_valid, q_scale=1.0):
+    """landmark_attention (S query rows over L keys, a bias lane with −1e30
+    entries) and landmark_stats (L landmark rows over S keys, masked at
+    n_valid and l_valid) against their plain versions, at the tolerances of
+    the tests above, and every rows-a-block candidate against the static
+    geometry bit for bit."""
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    q = (_randn(g, (P, S, Dh), dev) * q_scale).to(dtype)
+    kt, M = _randn(g, (P, L, Dh), dev, dtype), _randn(g, (P, L, Dv), dev, dtype)
+    bias = torch.log(torch.rand((P, L), generator=g) * 3 + 0.1)
+    bias[:, ::5] = -1e30
+    bias = bias.to(dev)
+    out = LK.landmark_attention(q, kt, M, bias)
+    assert out.isfinite().all()
+    _close(out, LR.landmark_attention_ref(q, kt, M, bias), tol)
+    fb = (LK.static_rows(S, Dh, dtype, dtype, dev),)
+    _candidates_equal_static(lambda c: (LK.landmark_attention(q, kt, M, bias, bq=c[0]),),
+                             LO._bq_candidates(S, fb, Dh, dtype, dtype, dev), fb)
+    qt = (_randn(g, (P, L, Dh), dev) * q_scale).to(dtype)
+    k, v = _randn(g, (P, S, Dh), dev, dtype), _randn(g, (P, S, Dv), dev, dtype)
+    W, BmV = LK.landmark_stats(qt, kt, k, v, n_valid=n_valid, l_valid=l_valid)
+    Wr, BmVr = LR.landmark_stats_ref(qt, kt, k, v, n_valid=n_valid, l_valid=l_valid)
+    _close(W, Wr, 1e-5)
+    _close(BmV, BmVr, 1e-5)
+    fb = (LK.static_rows(L, Dh, dtype, torch.float32, dev, "landmark_stats"),)
+    _candidates_equal_static(
+        lambda c: LK.landmark_stats(qt, kt, k, v, n_valid=n_valid, l_valid=l_valid, bs=c[0]),
+        LO._bq_candidates(L, fb, Dh, dtype, torch.float32, dev), fb)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", [63, 64, 65])
+def test_cuda_landmark_tile_edges(cuda_device, edge, dtype):
+    """S, L, n_valid and l_valid just below, at and just above the 64-key
+    tile and a multiple of the 16-row warp tile: landmark_attention with
+    ``edge`` query rows over ``edge`` keys; landmark_stats with ``edge``
+    landmark rows over 128 + ``edge`` keys, masked from key ``edge`` and
+    landmark column ``edge`` − 1."""
+    g = torch.Generator().manual_seed(edge)
+    _both_kernels(g, cuda_device, dtype, 3, edge, edge, 64, 72, edge, edge - 1)
+    _both_kernels(g, cuda_device, dtype, 2, 128 + edge, edge, 32, 40, edge, edge)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [16, 80, 128, 256])
+def test_cuda_landmark_head_dims(cuda_device, Dh, dtype):
+    """Head dims from 16 to MAX_HEAD_DIM (256 takes 32-key tiles in
+    float32), with Dv = 200 across two value chunks."""
+    g = torch.Generator().manual_seed(Dh)
+    _both_kernels(g, cuda_device, dtype, 2, 150, 100, Dh, 200, 93, 97)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_landmark_large_logits(cuda_device, dtype):
+    """Queries scaled ×4 (logits of standard deviation 4 at Dh = 128), where
+    an error of the split products would show through expf."""
+    g = torch.Generator().manual_seed(44)
+    _both_kernels(g, cuda_device, dtype, 4, 256, 1024, 128, 128, 250, 1000, q_scale=4.0)
+
+
+@pytest.mark.cuda
+def test_cuda_landmark_fits_at_head_dim_256(cuda_device):
+    """At Dh = MAX_HEAD_DIM the tensor-core sweep launches at 64 rows a
+    block in every dtype variant (float32 at 32-key tiles), and the decode
+    sweep at its 8 rows."""
+    for dtype, out in [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                       (torch.bfloat16, torch.float32)]:
+        assert LK.fits(64, 256, dtype, out, cuda_device)
+        assert LK.fits(8, 256, dtype, out, cuda_device)
+    assert LK.key_tile(9, 256, torch.float32) == 32
 
 
 @pytest.mark.cuda
