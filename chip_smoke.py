@@ -11,7 +11,9 @@
    CUDA events around a run of back-to-back calls, and the device's own
    time for the same run from ``torch.profiler`` (see ``timed``).  The
    tensor-core attention sweeps also print their TFLOP/s and their share of
-   the IEEE-FMA bound and of the 3×TF32 bound (``bound_tc_ms``, ``rate``).
+   the IEEE-FMA bound and of the 3×TF32 bound (``bound_tc_ms``, ``rate``);
+   the decode sweep its share of the byte bound, its TB/s, the device
+   operations a call (one launch), float32 and bfloat16.
    Each autotuned kernel's candidate geometries (rows a block) are held
    against its static geometry bit for bit and timed, and the measured
    autotune cache chooses one at the row's shape (``geometry``).
@@ -20,8 +22,12 @@
    no cache file (the static geometry), pass 2 with the cache on and empty
    (each key's first call measures; the fit of (b) is timed cold and warm).
    Both passes keep every check; their launch counts must agree, and their
-   outputs are compared bit for bit.  Sketched kernel ridge regression, fit
-   and predict:
+   outputs must agree bit for bit.  A third pass runs the paths again on
+   pass 2's cache (warm) under ``torch.profiler``, with every kernel
+   wrapper's launch in a range of its own (``autotune.PROFILE_RANGES``) and
+   the checks' own calls left out, and sums each wrapper's device time on
+   each path (``PathTrace``).  Sketched kernel ridge regression, fit and
+   predict:
    (a) quickstart §1 (n=2000, d=40): Nyström m=1 and accumulation m=8
        matrix-free fits against exact float64 KRR;
    (b) operator fit and predict at n = 2^21, d=64, m=4;
@@ -36,7 +42,8 @@
    Serving minitron-8b at full width (bfloat16 weights from a seed):
    (j) batch 4, an 8192-token prompt, 64 greedy tokens, with the exact and
        the sketched cache (d_slots 1024, m_r 2): prefill time, decode
-       tokens/s, cache bytes, and 32 × 63 landmark_attention launches;
+       tokens/s, cache bytes, 32 × 63 landmark_attention launches, and the
+       decode sweep's device time a step under the profiler;
    (k) the sketched prefill ≡ the sequential fold bitwise (bfloat16 and
        float32 caches), sketched ≡ exact decode with identity slots
        (teacher-forced logits), and a killed generate resumed bitwise;
@@ -51,7 +58,8 @@
    plain version; and a corrupt cache file, which falls back to the static
    geometry with a health record.  The autotune caches live in a temporary
    directory, so every run starts cold.
-4. Prints one ``{"kernels": [...]}`` line, the card line, and as the last
+4. Prints one ``{"kernels": [...]}`` line (with each kernel's device ms
+   summed on the paths of pass 3 and (m)), the card line, and as the last
    line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before the last line is printed.  Without a CUDA device it exits 2.
 
@@ -61,12 +69,14 @@ n = 2^21), so an absolute tolerance alone would measure their magnitude.
 """
 from __future__ import annotations
 
+import bisect
 import collections
 import concurrent.futures
 import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -134,9 +144,10 @@ def timed(torch, fn, reps: int = 5, run_ms: float = 20.0,
     median of ``reps`` runs, after warm-up.  ``calls`` is sized from one call
     so that a run lasts about ``run_ms``.  Where the host takes longer to
     issue a call than the device to run it, this measures the host.
-    device ms: the summed duration of the device's kernels and copies in one
-    such run under ``torch.profiler``, over ``calls``; None where the
-    profiler saw no device activity."""
+    device ms: the summed duration of the device's kernels and copies in a
+    run under ``torch.profiler``, over ``calls``: the larger of two such
+    runs, as the profiler now and then misses a record; None where it saw
+    no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,19 +166,22 @@ def timed(torch, fn, reps: int = 5, run_ms: float = 20.0,
     torch.cuda.synchronize()
     calls = max(1, min(max_calls, round(run_ms / max(run(1), 1e-3))))
     ms = statistics.median(run(calls) for _ in range(reps))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+    us = 0.0
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = max(us, sum(e.time_range.elapsed_us() for e in prof.events()
+                         if e.device_type == DeviceType.CUDA))
     return ms, (us / 1e3 / calls if us > 0 else None)
 
 
-def profiled(torch, fn) -> tuple[float, float, list]:
-    """(wall ms, device ms, the four kernels with the most device time) of
-    one ``fn()`` under ``torch.profiler``, between device synchronizations.
-    The profiler's own host cost inflates the wall time, not the device's."""
+def profiled(torch, fn) -> tuple[float, float, list, dict]:
+    """(wall ms, device ms, the four kernels with the most device time, the
+    device ms of every kernel by name) of one ``fn()`` under
+    ``torch.profiler``, between device synchronizations.  The profiler's
+    own host cost inflates the wall time, not the device's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -182,7 +196,95 @@ def profiled(torch, fn) -> tuple[float, float, list]:
         if e.device_type == DeviceType.CUDA:
             by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
-    return wall * 1e3, sum(by.values()), [(n[:60], round(t, 3)) for n, t in top]
+    return wall * 1e3, sum(by.values()), [(n[:60], round(t, 3)) for n, t in top], by
+
+
+def device_ops_per_call(torch, fn, calls: int = 20) -> int:
+    """Operations the device ran (kernels, copies, fills) per warm call of
+    ``fn``: their count under ``torch.profiler`` over ``calls`` calls, over
+    ``calls``, rounded (the profiler now and then misses a record)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return round(sum(e.device_type == DeviceType.CUDA for e in prof.events()) / calls)
+
+
+class PathTrace:
+    """The device time of each kernel wrapper's launches on a main path,
+    under ``torch.profiler`` (pass 3); a no-op where ``on`` is false.
+
+    ``begin(path)`` starts one profiler session for the path, with every
+    wrapper launching inside a ``launch:<wrapper>`` range
+    (``autotune.PROFILE_RANGES``), except the calls made only to check the
+    path (``off_path``), which launch outside ranges and so count for no
+    wrapper; ``end()`` stops the session and keeps, for the path, each
+    wrapper's summed device time and range count (``by_wrapper``) and the
+    device ms of every CUDA kernel by name, the checks' included
+    (``by_kernel``).  The profiler mirrors each range on the device's
+    timeline, spanning the kernels launched inside it; a wrapper's device
+    time is the sum of the kernels that lie within its ranges there (on the
+    H100 the host-side ranges get no device time of the port's kernels
+    linked to them).  The raw kineto events are read rather than
+    ``prof.events()``, which builds a Python event, and a tree of them, for
+    every host operation of the path."""
+
+    def __init__(self, torch, autotune, on: bool):
+        self.torch, self.at, self.on = torch, autotune, on
+        self.path, self.prof = None, None
+        self.by_wrapper: dict[str, dict[str, list]] = {}
+        self.by_kernel: dict[str, dict[str, float]] = {}
+        self.seconds: dict[str, float] = {}
+
+    def begin(self, path: str) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        if not self.on:
+            return
+        self.path, self.seconds[path] = path, time.perf_counter()
+        self.torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.prof.start()
+        self.at.PROFILE_RANGES = True
+
+    def end(self) -> None:
+        from torch.autograd import DeviceType
+
+        if self.prof is None:
+            return
+        self.torch.cuda.synchronize()
+        self.at.PROFILE_RANGES = False
+        self.prof.stop()
+        ranges, ops, kernels = [], [], {}
+        for e in self.prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA:
+                continue
+            span, name = (e.start_ns(), e.end_ns()), e.name()
+            if name.startswith("launch:"):
+                ranges.append((*span, name.removeprefix("launch:")))
+            else:
+                ops.append(span)
+                kernels[name] = kernels.get(name, 0.0) + (span[1] - span[0]) / 1e6
+        ops.sort()
+        starts = [a for a, _ in ops]
+        wrappers: dict[str, list] = {}
+        for a, b, name in ranges:
+            i, ns = bisect.bisect_left(starts, a), 0
+            while i < len(ops) and ops[i][0] <= b:
+                if ops[i][1] <= b:
+                    ns += ops[i][1] - ops[i][0]
+                i += 1
+            acc = wrappers.setdefault(name, [0.0, 0])
+            acc[0] += ns / 1e6
+            acc[1] += 1
+        self.by_wrapper[self.path], self.by_kernel[self.path] = wrappers, kernels
+        self.seconds[self.path] = time.perf_counter() - self.seconds[self.path]
+        self.prof, self.path = None, None
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
@@ -325,7 +427,8 @@ def main() -> int:
         geo = static
         if choose is not None:
             choose()
-            geo = AT.lookup(kind, key, dtype, dev, arity=1) or static
+            src = LK.source_hash() if kind.startswith("landmark") else KN.source_hash()
+            geo = AT.lookup(kind, key, dtype, dev, arity=1, source=src) or static
         ms, dms = timed(torch, lambda: launch(geo))
         print(f"  {name} {key}: candidates (rows a block: ms) "
               f"{ {k: round(v, 4) for k, v in cand_ms.items()} }; chosen by the "
@@ -578,23 +681,47 @@ def main() -> int:
     ea, er, ok = close(out, LR.landmark_attention_ref(qd, ktd, Md, bias), 1e-5)
     check(ok, f"landmark_attention f32 decode P={P} G={G} L={Lm} Dh={Dh}: max abs "
               f"{ea:.3e}, /max|plain| {er:.3e} (tol 1e-5)")
+    check(torch.equal(LK.landmark_attention(qd, ktd, Md, bias), out),
+          "landmark_attention decode: a second call gives the same bits")
     ms, dms = timed(torch, lambda: LK.landmark_attention(qd, ktd, Md, bias))
     pms, _ = timed(torch, lambda: LR.landmark_attention_ref(qd, ktd, Md, bias))
     mask = bias[:, None, :]
     print(f"  SDPA(q, k̃, M, attn_mask=bias) vs kernel: max abs "
           f"{(sdpa(qd, ktd, Md, attn_mask=mask) - out).abs().max().item():.3e}")
     lms, ldms = timed(torch, lambda: sdpa(qd, ktd, Md, attn_mask=mask))
-    b, by = bound_ms((qd.numel() + ktd.numel() + Md.numel() + bias.numel()
-                      + out.numel()) * 4, 2 * P * G * Lm * 2 * Dh)
+    nbytes = (qd.numel() + ktd.numel() + Md.numel() + bias.numel() + out.numel()) * 4
+    b, by = bound_ms(nbytes, 2 * P * G * Lm * 2 * Dh)
+    per_call = device_ops_per_call(torch, lambda: LK.landmark_attention(qd, ktd, Md, bias))
+    nsplit, run = LK.plan(P, G, Lm, Dh, Dh, torch.float32)
     print(f"  landmark_attention decode: {ms:.4f} ms (device {dms}), plain {pms:.4f} ms, "
-          f"bound {b:.5f} ms by {by}, SDPA {lms:.4f} ms (device {ldms})")
+          f"bound {b:.5f} ms by {by}, SDPA {lms:.4f} ms (device {ldms}); "
+          f"{b / dms:.1%} of the byte bound on device time ({b / ms:.1%} on CUDA events), "
+          f"{nbytes / dms / 1e9:.3f} TB/s; {per_call:g} device operations a call; "
+          f"{nsplit} splits × {LK.DECODE_WARPS} warps × {run} keys")
+    qh, kh, Mh = qd.bfloat16(), ktd.bfloat16(), Md.bfloat16()
+    outh = LK.landmark_attention(qh, kh, Mh, bias)
+    eh, rh, okh = close(outh, LR.landmark_attention_ref(qh, kh, Mh, bias), 2e-2)
+    check(okh and outh.dtype == torch.bfloat16,
+          f"landmark_attention bf16 decode: max abs {eh:.3e}, /max|plain| {rh:.3e} "
+          f"(tol 2e-2)")
+    hms, hdms = timed(torch, lambda: LK.landmark_attention(qh, kh, Mh, bias))
+    hbytes = (qh.numel() + kh.numel() + Mh.numel() + outh.numel()) * 2 + bias.numel() * 4
+    hb, _ = bound_ms(hbytes, 2 * P * G * Lm * 2 * Dh)
+    print(f"  landmark_attention bf16 decode: {hms:.4f} ms (device {hdms}), bound "
+          f"{hb:.5f} ms, {hb / hdms:.1%} of it on device time")
     rows["landmark_attention"] = dict(replaces=f"{LTPU}:54", max_abs_err=ea,
                                       max_rel_err=er, ms=ms, device_ms=dms,
                                       plain_ms=pms, bound_ms=b, bound_by=by,
                                       library_ms=lms, library_device_ms=ldms,
                                       library="SDPA with the bias as attn_mask",
                                       shape="decode P=32 G=4 L=1024",
-                                      bound_tc_ms=None)   # the decode sweep: IEEE FMA
+                                      share_of_bound=b / dms, tb_per_s=nbytes / dms / 1e9,
+                                      device_ops_per_call=per_call,
+                                      plan=dict(splits=nsplit, warps=LK.DECODE_WARPS,
+                                                keys_a_warp=run),
+                                      bf16=dict(max_abs_err=eh, ms=hms, device_ms=hdms,
+                                                bound_ms=hb),
+                                      bound_tc_ms=None)   # the decode sweep: bytes
     rows["landmark_attention"].update(geometry(
         "landmark_attention decode", "landmark_attention", (P, G, Dh, Lm, Dh), torch.float32,
         LO._bq_candidates(G, (LK.static_bq(G),), Dh, torch.float32, torch.float32, dev),
@@ -682,11 +809,16 @@ def main() -> int:
 
     @contextlib.contextmanager
     def off_path():
-        """Calls made only to check the main path: their launches are undone."""
-        saved = counts()
+        """Calls made only to check the main path: their launches are undone,
+        and under pass 3's profiler they launch outside the wrappers' ranges."""
+        saved, ranges = counts(), AT.PROFILE_RANGES
+        AT.PROFILE_RANGES = False
         yield
+        AT.PROFILE_RANGES = ranges
         for f in ALL:
             f.launches = saved[f.__name__]
+
+    trace = PathTrace(torch, AT, False)
 
     def run_paths(label):
         """Drive the three main paths (a)–(l), each with the launch counts
@@ -702,6 +834,7 @@ def main() -> int:
         K8 = KernelOperator(X8, "gaussian", bw).dense()
         held = {}
         reset_counts()
+        trace.begin("krr")
         phase_launches = {}
 
         # (a) quickstart §1.  One draw does not order the two (the reference's
@@ -750,7 +883,7 @@ def main() -> int:
         with off_path():
             _, tw = wall(torch, lambda: krr_sketched_fit(opb, yb, lam, skb))
         geo = AT.lookup("matfree_cols", (nb, 3, d, m, "gaussian"), torch.float32, dev,
-                        arity=1)
+                        arity=1, source=KN.source_hash())
         print(f"  (b) fit: first call {tb * 1e3:.1f} ms, the same fit again {tw * 1e3:.1f} "
               f"ms; matfree_apply geometry {geo or 'static'} (rows a block)")
         held.update(b=model_b.fitted, b_pred=pred)
@@ -801,6 +934,7 @@ def main() -> int:
               f"(d) PCG fitted finite; rel diff to the direct solve {rd:.3e}; MSE "
               f"to f_true {mse_d:.3e} (direct {mse:.3e})")
         phase_launches["d"] = counts()
+        trace.end()
         launches = {"krr": counts()}
         print(f"  launches after each phase (cumulative): {phase_launches}")
         for name in ("matfree_apply", "accum_apply_left", "accum_sketch_both"):
@@ -811,6 +945,7 @@ def main() -> int:
         # ---- 4. the progressive engine's path ----------------------------------- #
         print("\n== main path: the progressive engine ==")
         reset_counts()
+        trace.begin("engine")
         phase_launches = {}
 
         def rel(x, y):
@@ -924,6 +1059,7 @@ def main() -> int:
         held.update(i_fix=res_fix.labels, i_tol=res_tol.labels)
         del Ki, Xi
         phase_launches["i"] = counts()
+        trace.end()
         launches["engine"] = counts()
         print(f"  launches after each phase (cumulative): {phase_launches}")
         for name in ("accum_apply", "accum_step_slab", "accum_grow_slabs"):
@@ -935,6 +1071,7 @@ def main() -> int:
         # ---- 5. the serving path: minitron-8b at full width ---------------------- #
         print(f"\n== main path: serving {ARCH} ==")
         reset_counts()
+        trace.begin("serve")
         phase_launches = {}
         cfg = get_config(ARCH)
         sa = cfg.sketch_attn
@@ -985,16 +1122,20 @@ def main() -> int:
                     _, cache = decode_step(params, cache, last, pos, cfg, slots=decode_slots(
                         SEED, pos, sa.d_slots, sa.m_r, max_len=eng.sc.max_len))
 
-            with off_path():
-                pw, pdev, top = profiled(torch, steps)
-                step_ms = tdec * 1e3 / (NEW - 1)
-                print(f"  (j) {mode}: {PROFILED} profiled decode steps: device {pdev / PROFILED:.2f} "
-                      f"ms a step against {step_ms:.2f} ms unprofiled, so the device idles "
-                      f"{1 - pdev / PROFILED / step_ms:.2f} of a step; top kernels {top}")
-                pw, pdev, top = profiled(torch, lambda: eng.prefill_tokens(eng.new_cache(BATCH),
-                                                                            prompts[:, :1024]))
-                print(f"  (j) {mode}: profiled prefill of {BATCH}×1024 tokens: wall {pw:.1f} ms, "
-                      f"device {pdev:.1f} ms; top kernels {top}")
+            if not trace.on:   # pass 3 is under the profiler already
+                with off_path():
+                    pw, pdev, top, by = profiled(torch, steps)
+                    step_ms = tdec * 1e3 / (NEW - 1)
+                    attend = sum(t for k, t in by.items() if "attend_decode_kernel" in k)
+                    print(f"  (j) {mode}: {PROFILED} profiled decode steps: device "
+                          f"{pdev / PROFILED:.2f} ms a step against {step_ms:.2f} ms "
+                          f"unprofiled, so the device idles {1 - pdev / PROFILED / step_ms:.2f} "
+                          f"of a step; the decode sweep (attend_decode_kernel) "
+                          f"{attend / PROFILED:.3f} ms a step; top kernels {top}")
+                    pw, pdev, top, _ = profiled(torch, lambda: eng.prefill_tokens(
+                        eng.new_cache(BATCH), prompts[:, :1024]))
+                    print(f"  (j) {mode}: profiled prefill of {BATCH}×1024 tokens: wall "
+                          f"{pw:.1f} ms, device {pdev:.1f} ms; top kernels {top}")
             del cache, eng
         agree = float((served["exact"] == served["sketched"]).mean())
         print(f"  (j) greedy tokens equal in the two modes at {PROMPT} tokens of context: "
@@ -1098,15 +1239,17 @@ def main() -> int:
               f"{ta * 1e3:.1f} ms ({n_ls} landmark_stats + {n_la} landmark_attention "
               f"launches), plain route {tpa * 1e3:.1f} ms")
         # where the kernel route's time goes, warm: device time by kernel
-        with off_path():
-            wl, dl, top = profiled(torch, lambda: accum_attention(qa, ka, va, ska))
-        print(f"  (l) kernel route under the profiler: {wl:.1f} ms wall, {dl:.1f} ms device; "
-              f"top device kernels (ms) {top}")
+        if not trace.on:   # pass 3 is under the profiler already
+            with off_path():
+                wl, dl, top, _ = profiled(torch, lambda: accum_attention(qa, ka, va, ska))
+            print(f"  (l) kernel route under the profiler: {wl:.1f} ms wall, {dl:.1f} ms "
+                  f"device; top device kernels (ms) {top}")
         check(bool(out_a.isfinite().all()) and ra <= 1e-3 and n_la == n_ls == 1,
               f"(l) kernel route vs plain: rel {ra:.3e} (tol 1e-3)")
         held["l"] = out_a
         del qa, ka, va, out_a, plain_a
         phase_launches["l"] = counts()
+        trace.end()
         launches["serve"] = counts()
         print(f"  launches after each phase (cumulative): {phase_launches}")
         for name in ("landmark_attention", "landmark_stats"):
@@ -1121,25 +1264,67 @@ def main() -> int:
     # every later call is a cache hit (warm).
     os.environ[AT.ENV_GATE] = "0"
     os.environ[AT.ENV_CACHE] = str(tmp / "pass1.json")
+    t_pass = time.perf_counter()
     launches_static, held_static = run_paths("pass 1: static geometry, REPRO_AUTOTUNE=0, "
                                              "no cache file")
+    print(f"  pass 1: {time.perf_counter() - t_pass:.1f} s")
     check(not (tmp / "pass1.json").exists(), "pass 1 measured nothing and wrote no cache")
     os.environ[AT.ENV_GATE] = "1"
     os.environ[AT.ENV_CACHE] = str(tmp / "pass2.json")
     measured = collections.Counter(AT.MEASURE_LAUNCHES)
+    t_pass = time.perf_counter()
     launches, held = run_paths("pass 2: the autotune cache on, from empty")
+    print(f"  pass 2: {time.perf_counter() - t_pass:.1f} s")
     measured = AT.MEASURE_LAUNCHES - measured
     print("\n== the two passes ==")
     check(launches == launches_static,
           f"launch counts of the three paths equal in both passes: "
           f"{ {p: {k: v for k, v in c.items() if v} for p, c in launches.items()} }")
     same = {k: torch.equal(held[k], held_static[k]) for k in held}
-    print(f"  pass 2's outputs bitwise pass 1's: {same}")
+    check(all(same.values()), f"pass 2's outputs bitwise pass 1's: {same}")
     print(f"  launches made while measuring in pass 2, counted apart: {dict(measured)}")
     print("  the geometry each key's entry holds after pass 2 (rows a block):")
     for k, v in sorted(json.loads((tmp / "pass2.json").read_text()).items()):
         print(f"    {k}: {v}")
-    del held, held_static
+    del held
+    torch.cuda.empty_cache()
+
+    # pass 3: the paths again on pass 2's cache (warm: nothing is measured),
+    # under the profiler, which sums each kernel wrapper's device time on
+    # each path (PathTrace); the checks' own calls are left out (off_path)
+    trace.on = True
+    measured3 = collections.Counter(AT.MEASURE_LAUNCHES)
+    # the CUDA kernels the two sources define, by name
+    kernel_def = re.compile(r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(")
+    PORT_KERNELS = {n for mod in (KN, LK) for n in kernel_def.findall(mod.SOURCE.read_text())}
+    t_pass = time.perf_counter()
+    launches3, held3 = run_paths("pass 3: pass 2's cache, under the profiler")
+    trace.on = False
+    print(f"  pass 3: {time.perf_counter() - t_pass:.1f} s")
+    print("\n== pass 3: device time of each kernel wrapper on each path ==")
+    check(launches3 == launches_static and AT.MEASURE_LAUNCHES == measured3,
+          "pass 3: the launch counts of passes 1 and 2, nothing measured")
+    same = {k: torch.equal(held3[k], held_static[k]) for k in held3}
+    print(f"  pass 3's outputs bitwise pass 1's: {same}")
+    for path, sums in trace.by_wrapper.items():
+        # the profiler may drop an event now and then: at least 99% of each
+        # wrapper's launches must have their range on the device's timeline
+        ranges = {k: v[1] for k, v in sums.items()}
+        want = {k: v for k, v in launches3[path].items() if v}
+        check(set(ranges) == set(want) and all(0.99 * n <= ranges[k] <= n for k, n in want.items()),
+              f"pass 3 {path}: the launches' ranges on the device {ranges} (launches {want})")
+        print(f"  ({path}) device ms by wrapper: "
+              f"{ {k: round(v[0], 4) for k, v in sums.items()} }; profiled and read in "
+              f"{trace.seconds[path]:.1f} s")
+        top = sorted(trace.by_kernel[path].items(), key=lambda kv: -kv[1])[:8]
+        print(f"  ({path}) device ms of the path's kernels by name, the checks' included "
+              f"(total {sum(trace.by_kernel[path].values()):.3f}): "
+              f"{[(n[:70], round(t, 4)) for n, t in top]}")
+        ours = {n.split("::")[1].split("(")[0]: round(t, 4)
+                for n, t in trace.by_kernel[path].items()
+                if any(f"::{k}<" in n for k in PORT_KERNELS)}
+        print(f"  ({path}) the port's CUDA kernels by name, the checks' included: {ours}")
+    del held3, held_static
     torch.cuda.empty_cache()
 
     # ---- 6. path (m): the K·S baseline (benchmarks/kernel_bench.py:52-74) ---- #
@@ -1147,6 +1332,9 @@ def main() -> int:
     # bm=256, bd=8, at the benchmark's anchor and on the engine's dense K
     print("\n== path (m): the K·S baseline, accum_apply against accum_apply_scalar ==")
     reset_counts()
+    # the path's device ms by wrapper: each on-path call's shape timed on
+    # its own below (the profiler's device time of back-to-back calls)
+    ks = {"accum_apply": [0.0, 0], "accum_apply_scalar": [0.0, 0]}
     gm = torch.Generator(device=dev).manual_seed(10)
     Ka = torch.randn((R_ANCHOR, N_ANCHOR), generator=gm, device=dev)
     skm_a = make_accum_sketch(gm, N_ANCHOR, d, 4, device=dev)
@@ -1171,12 +1359,16 @@ def main() -> int:
             check(okt and oks and scalar.dtype == dt,
                   f"(m) {label} R={R} N={N} d={d} m=4 {dt}: accum_apply max abs {et:.3e}, "
                   f"accum_apply_scalar max abs {es:.3e} against the plain version (tol {tol})")
-            geo = (AT.lookup("accum_apply", (R, N, d, 4), dt, dev, arity=1)
+            geo = (AT.lookup("accum_apply", (R, N, d, 4), dt, dev, arity=1,
+                             source=KN.source_hash())
                    or AT.STATIC_TABLE["accum_apply"])
             ms_t, dms_t = timed(torch, lambda: KN.accum_apply(Kt, idm, cfm, bm=geo[0]))
             ms_s, dms_s = timed(torch, lambda: KN.accum_apply(Kt, idm, cfm))
             ms_c, dms_c = timed(torch, lambda: KN.accum_apply_scalar(Kt, idm, cfm, bm=256,
                                                                      bd=8))
+            for name, t in (("accum_apply", dms_t), ("accum_apply_scalar", dms_c)):
+                ks[name][0] += t if t is not None else math.nan
+                ks[name][1] += 1
             pms, _ = timed(torch, lambda: ref.accum_apply_ref(Kt, idm, cfm))
             St = sketch_csr(torch, idm, cfm, N, transposed=True)
             try:
@@ -1201,11 +1393,13 @@ def main() -> int:
         scalar_rows[f"{label} {str(dt).removeprefix('torch.')}"] = dict(
             shape=f"R={R} N={N} d={d} m=4", max_abs_err=es, max_rel_err=rs, ms=ms_c,
             device_ms=dms_c, plain_ms=pms, bound_ms=b, bound_by=by, library_ms=lms,
-            accum_apply_geometry=geo[0], accum_apply_ms=ms_t, accum_apply_static_ms=ms_s,
-            ratio_scalar_over_autotuned=ms_c / ms_t)
+            library_device_ms=ldms, accum_apply_geometry=geo[0], accum_apply_ms=ms_t,
+            accum_apply_static_ms=ms_s, ratio_scalar_over_autotuned=ms_c / ms_t)
         del Kt, tuned, scalar, plain
     phase_launches = {"m": counts()}
     launches["ks"] = counts()
+    trace.by_wrapper["ks"] = ks
+    print(f"  (m) device ms by wrapper: { {k: round(v[0], 4) for k, v in ks.items()} }")
     print(f"  launches on path (m): {phase_launches}")
     for name in ("accum_apply", "accum_apply_scalar"):
         cnt = launches["ks"][name]
@@ -1230,7 +1424,13 @@ def main() -> int:
                            f"the static geometry; health {global_health().summary()}")
     del Ka, Kd, out
 
+    # device ms on the paths: pass 3's KRR, engine and serving paths summed
+    # by wrapper under the profiler, and path (m)'s calls timed one by one
+    def on_paths(name):
+        return {p: round(w[name][0], 6) for p, w in trace.by_wrapper.items() if name in w}
+
     for name, row in rows.items():
+        print(f"  {name}: device ms summed on the paths {on_paths(name)}")
         print(f"  {name}: {row['ms']:.4f} ms, device {row['device_ms']} ms "
               f"(plain {row['plain_ms']:.4f} ms, "
               f"bound {row['bound_ms']:.5f} ms by {row['bound_by']}, library "
@@ -1241,7 +1441,9 @@ def main() -> int:
     kernels = [dict(name=f.__name__, route="cuda", source=SRC if f in KN.KERNELS else LSRC,
                     launches=sum(c[f.__name__] for c in launches.values()),
                     launches_by_path={p: c[f.__name__] for p, c in launches.items()},
-                    launches_measuring=measured[f.__name__], **rows[f.__name__])
+                    launches_measuring=measured[f.__name__],
+                    device_ms_on_paths=sum(on_paths(f.__name__).values()),
+                    device_ms_by_path=on_paths(f.__name__), **rows[f.__name__])
                for f in ALL]
     tmpdir.cleanup()
     if FAILURES:

@@ -5,6 +5,7 @@ NVIDIA GPU, for the repo's CUDA source or other builds of it.
     python3 scripts/bench_landmark.py [SOURCE.cu ...]
     python3 scripts/bench_landmark.py --diagnose
     python3 scripts/bench_landmark.py --mma-peak
+    python3 scripts/bench_landmark.py --decode [--plans] [--src DIR]
 
 ``--diagnose`` times the repo's source beside copies of it (under
 ``build/variants/``) from which one part of the work is taken out, to see
@@ -15,6 +16,18 @@ outputs are wrong by design and are not checked.  ``--mma-peak`` builds
 ``scripts/mma_peak.cu`` and prints the rate of ``mma.sync`` alone (eight
 independent products a warp in a loop) for TF32 m16n8k8 and bfloat16
 m16n8k16, at 4, 8 and 16 warps a block and four blocks an SM.
+
+``--decode`` times the decode sweep instead, at the decode shape of the
+sketched cache (P = 32 problems of G = 4 query rows over L = 1024 slots,
+Dh = Dv = 128, float32, a log-mass bias lane with empty slots): the
+kernel's CUDA-event and device ms, its share of the byte bound, its TB/s
+and the device operations a call, beside two PyTorch yardsticks that read
+the same k̃ and M once (``torch.sum`` of each, and SDPA with the bias as
+mask).  ``--plans`` also times other key partitions (warps a block × keys a
+warp) than ``kernel.plan``'s, each held against the plain version (1e-5 of
+max|plain|).  ``--src DIR`` imports the port from ``DIR/src`` (for example
+an unpacked earlier commit) so that two versions are timed by the same
+script in one call.
 
 For each source (default: the repo's ``landmark_attention.cu``) it builds
 the library with ``kernel.py``'s nvcc flags and prints ptxas's register and
@@ -91,6 +104,66 @@ def mma_peak(torch, smi: str) -> int:
     return 0
 
 
+# key partitions of the decode sweep timed by --plans: (warps a block, keys a warp)
+DECODE_PLANS = [(8, 8), (8, 16), (8, 32), (8, 64), (4, 16), (4, 32), (4, 64), (2, 64)]
+
+
+def decode(torch, smi: str, plans: bool) -> int:
+    """The decode sweep at the decode shape (see the module's docstring)."""
+    import math
+
+    import chip_smoke as CS
+    from repro_torch.kernels.landmark_attention import kernel as LK
+    from repro_torch.kernels.landmark_attention import ref as LR
+
+    print(f"port: {Path(LK.__file__).parents[3]}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    G = 4
+    q = torch.randn((P, G, D), generator=g, device=dev)
+    kt = torch.randn((P, L, D), generator=g, device=dev)
+    M = torch.randn((P, L, D), generator=g, device=dev)
+    mass = 3 * torch.rand((P, L), generator=g, device=dev)
+    bias = torch.where(mass < 0.3, -1e30, torch.log(mass))
+    plain = LR.landmark_attention_ref(q, kt, M, bias)
+    nbytes = (q.numel() + kt.numel() + M.numel() + bias.numel() + plain.numel()) * 4
+    bound, _ = CS.bound_ms(nbytes, 2 * P * G * L * 2 * D)
+    results: dict[str, dict] = {}
+    failed = False
+
+    def run(name: str) -> None:
+        nonlocal failed
+        out = LK.landmark_attention(q, kt, M, bias)
+        ea, er, ok = CS.close(out, plain, 1e-5)
+        failed |= not ok
+        ms, dms = CS.timed(torch, lambda: LK.landmark_attention(q, kt, M, bias))
+        ops = CS.device_ops_per_call(torch, lambda: LK.landmark_attention(q, kt, M, bias))
+        print(f"  [{'ok' if ok else 'FAIL'}] {name}: max abs {ea:.3e} (/max|plain| {er:.3e}); "
+              f"{ms:.4f} ms (device {dms}); {bound / dms:.1%} of the {bound:.5f} ms byte bound, "
+              f"{nbytes / dms / 1e9:.3f} TB/s; {ops:g} device operations a call")
+        results[name] = dict(ms=ms, device_ms=dms, max_abs_err=ea, share_of_bound=bound / dms,
+                             device_ops_per_call=ops)
+
+    run("kernel.plan " + str(LK.plan(P, G, L, D, D, torch.float32)))
+    if plans and hasattr(LK, "DECODE_WARPS"):
+        plan, warps = LK.plan, LK.DECODE_WARPS
+        for w, r in DECODE_PLANS:
+            LK.DECODE_WARPS = w
+            LK.plan = lambda *a, r=r, w=w, **k: (math.ceil(L / (w * r)), r)
+            run(f"{w} warps a block × {r} keys a warp ({math.ceil(L / (w * r))} splits)")
+        LK.plan, LK.DECODE_WARPS = plan, warps
+    for name, fn in (("torch.sum of k̃ and of M", lambda: (kt.sum(), M.sum())),
+                     ("SDPA with the bias as mask",
+                      lambda: torch.nn.functional.scaled_dot_product_attention(
+                          q, kt, M, attn_mask=bias[:, None, :]))):
+        ms, dms = CS.timed(torch, fn)
+        print(f"  {name}: {ms:.4f} ms (device {dms}); {bound / dms:.1%} of the byte bound")
+        results[name] = dict(ms=ms, device_ms=dms)
+    print(smi)
+    print(json.dumps(results))
+    return 1 if failed else 0
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -98,6 +171,10 @@ def main(argv: list[str]) -> int:
         print("bench_landmark: no CUDA device available", file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    if "--src" in argv:
+        at = argv.index("--src")
+        sys.path.insert(0, str(Path(argv[at + 1]).resolve() / "src"))
+        argv = argv[:at] + argv[at + 2:]
     import chip_smoke as CS
     from repro_torch.kernels.landmark_attention import kernel as LK
     from repro_torch.kernels.landmark_attention import ref as LR
@@ -108,6 +185,8 @@ def main(argv: list[str]) -> int:
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     if argv == ["--mma-peak"]:
         return mma_peak(torch, smi)
+    if argv and argv[0] == "--decode":
+        return decode(torch, smi, "--plans" in argv)
     if argv == ["--diagnose"]:
         sources = diagnostic_sources(LK.SOURCE)
     else:

@@ -13,9 +13,13 @@ names and rules:
     measured-cache -> static-table`` in ``resilience.degrade.global_health()``;
     a directory that cannot be written is not an error.
 
-Keys are ``kind|shape…|dtype|cuda:<device name>``: an entry measured on one
-card never serves another, and the reference's ``cpu/interpret`` or ``tpu``
-entries never match.  Values are lists of positive ints, so a file either
+Keys are ``kind|shape…|dtype|cuda:<device name>|src:<hash>``: an entry
+measured on one card never serves another, and the reference's
+``cpu/interpret`` or ``tpu`` entries never match.  The last field is the
+caller's ``source``, the hash of the kernel's CUDA source and nvcc flags
+(``kernel.source_hash``), so an entry measured on one version of a kernel is
+a miss for every other: a redesign measures anew instead of inheriting its
+predecessor's geometry.  Values are lists of positive ints, so a file either
 package wrote passes the other's validation.
 
 Measuring happens only where it means something: on a CUDA device, gated by
@@ -146,31 +150,36 @@ def _backend(device: torch.device) -> str:
     return device.type
 
 
-def _key(kind: str, shape_key: tuple, dtype: torch.dtype, device) -> str:
+def _key(kind: str, shape_key: tuple, dtype: torch.dtype, device,
+         source: str | None = None) -> str:
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     name = str(dtype).removeprefix("torch.")
-    return "|".join([kind, *map(str, shape_key), name, _backend(device)])
+    fields = [kind, *map(str, shape_key), name, _backend(device)]
+    return "|".join(fields if source is None else [*fields, f"src:{source}"])
 
 
 def lookup(kind: str, shape_key: tuple, dtype: torch.dtype, device,
-           arity: int | None = None) -> tuple[int, ...] | None:
+           arity: int | None = None, *, source: str | None = None
+           ) -> tuple[int, ...] | None:
     """The persisted winner for this key, or None (missing/corrupt cache).
     ``arity`` rejects entries of the wrong length — a hand-edited or
-    stale-schema entry must fall back, not crash the caller's unpack."""
-    entry = _load(cache_path()).get(_key(kind, shape_key, dtype, device))
+    stale-schema entry must fall back, not crash the caller's unpack.
+    ``source`` is the kernel source's hash: an entry recorded under another
+    hash (or none) is not this key's."""
+    entry = _load(cache_path()).get(_key(kind, shape_key, dtype, device, source))
     if not entry or (arity is not None and len(entry) != arity):
         return None
     return tuple(entry)
 
 
 def record(kind: str, shape_key: tuple, dtype: torch.dtype, device,
-           blocks: tuple[int, ...]) -> None:
-    """Persist ``blocks`` as the winner for this key."""
+           blocks: tuple[int, ...], *, source: str | None = None) -> None:
+    """Persist ``blocks`` as the winner for this key (and ``source``)."""
     path = cache_path()
     entries = dict(_load(path))
-    entries[_key(kind, shape_key, dtype, device)] = [int(b) for b in blocks]
+    entries[_key(kind, shape_key, dtype, device, source)] = [int(b) for b in blocks]
     _MEM[str(path)] = entries
     _store(path, entries)
 
@@ -183,6 +192,23 @@ def _measuring_launches():
         yield
     finally:
         _measuring = False
+
+
+# set by a caller that profiles the main paths (chip_smoke.py): each kernel
+# wrapper then launches inside a ``torch.profiler.record_function`` range
+# named ``launch:<wrapper>``, so the profiler can sum each wrapper's device
+# time even where wrappers share a CUDA kernel (the column gather)
+PROFILE_RANGES = False
+_NO_RANGE = contextlib.nullcontext()
+
+
+def launch_range(fn):
+    """The context a kernel wrapper ``fn`` launches in: a profiler range
+    named after it while ``PROFILE_RANGES`` is set and no candidate is being
+    timed, else nothing."""
+    if PROFILE_RANGES and not _measuring:
+        return torch.profiler.record_function(f"launch:{fn.__name__}")
+    return _NO_RANGE
 
 
 def count_launch(fn) -> None:
@@ -230,7 +256,7 @@ def _time(fns: list, device: torch.device) -> list[float]:
 def measured_blocks(
     kind: str, shape_key: tuple, dtype: torch.dtype, device,
     candidates: list[tuple[int, ...]], bench_fn, fallback: tuple[int, ...],
-    concrete: bool,
+    concrete: bool, source: str | None = None,
 ) -> tuple[int, ...]:
     """The autotune decision for one kernel call site.
 
@@ -238,12 +264,14 @@ def measured_blocks(
     inputs on a device where the gate allows) time ``bench_fn(blocks)`` for
     each candidate, persist and return the winner → ``fallback`` (the static
     geometry).  A hit that is not a candidate (a file written when the
-    kernel took other geometries) counts as a miss.  The caller drops
+    kernel took other geometries) counts as a miss, and so does an entry
+    recorded under another ``source`` hash (another version of the kernel's
+    CUDA source): the winner is recorded under this hash.  The caller drops
     candidates the device cannot launch before passing them; a single
     candidate is returned untimed.  ``bench_fn`` runs the caller's kernel on
     its real inputs into scratch outputs; ties go to the earlier candidate."""
     candidates = list(dict.fromkeys(tuple(c) for c in candidates))
-    hit = lookup(kind, shape_key, dtype, device, arity=len(fallback))
+    hit = lookup(kind, shape_key, dtype, device, arity=len(fallback), source=source)
     if hit is not None and hit in candidates:
         return hit
     if not concrete or not measure_enabled(device) or not candidates:
@@ -254,7 +282,7 @@ def measured_blocks(
     with _measuring_launches():
         times = _time([lambda c=c: bench_fn(c) for c in candidates], device)
     best = candidates[times.index(min(times))]
-    record(kind, shape_key, dtype, device, best)
+    record(kind, shape_key, dtype, device, best, source=source)
     return best
 
 

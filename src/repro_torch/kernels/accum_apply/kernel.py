@@ -61,10 +61,20 @@ def _nvcc() -> str:
     return found
 
 
+@functools.cache
+def source_hash(source: Path = SOURCE) -> str:
+    """16 hex digits of the sha256 of ``source`` and the nvcc flags.  It
+    names the built library, and the autotune cache keys its kernels'
+    entries by it, so that a geometry measured on one version of a kernel
+    never serves another (read once a process, as the library is loaded
+    once)."""
+    h = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def library_path(source: Path = SOURCE) -> Path:
     """Where the built library for ``source`` and the flags lives."""
-    h = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{source_hash(source)}.so"
 
 
 def build_source(source: Path, info: dict) -> Path:
@@ -193,7 +203,7 @@ def matfree_apply(X: torch.Tensor, L: torch.Tensor, coef: torch.Tensor, *,
     if n == 0 or d == 0:
         return out
     _int32(n=n, p=p, md=m * d)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), autotune.launch_range(matfree_apply):
         err = _lib().repro_matfree_apply(
             X.data_ptr(), L.data_ptr(), coef.data_ptr(), out.data_ptr(), n, p,
             m, d, jc, kind, float(bandwidth), 2.0 * float(bandwidth) ** 2, rows,
@@ -217,7 +227,7 @@ def accum_apply_left(M: torch.Tensor, idx: torch.Tensor,
     if d == 0 or c == 0:
         return out
     _int32(N=N, c=c, md=m * d)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), autotune.launch_range(accum_apply_left):
         err = _lib().repro_accum_apply_left(
             M.data_ptr(), idx.data_ptr(), coef.data_ptr(), out.data_ptr(), N,
             c, m, d, int(M.dtype == torch.bfloat16), _stream(dev))
@@ -246,7 +256,7 @@ def accum_sketch_both(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, *,
     if n == 0 or d == 0:
         return C, W.zero_()
     _int32(n=n, md=m * d)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), autotune.launch_range(accum_sketch_both):
         err = _lib().repro_accum_sketch_both(
             K.data_ptr(), idx.data_ptr(), coef.data_ptr(), C32.data_ptr(),
             C.data_ptr() if bf16 else None, W.data_ptr(), n, n, m, d, rows,
@@ -272,7 +282,7 @@ def accum_apply(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, *,
     if R == 0 or d == 0:
         return out
     _int32(R=R, N=N, md=m * d)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), autotune.launch_range(accum_apply):
         err = _lib().repro_accum_apply(
             K.data_ptr(), idx.data_ptr(), coef.data_ptr(), out.data_ptr(), R, N,
             m, d, rows, int(K.dtype == torch.bfloat16), _stream(dev))
@@ -299,7 +309,7 @@ def accum_step_slab(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor,
     if R == 0 or d == 0:
         return out
     _int32(R=R, N=N, d=d)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), autotune.launch_range(accum_step_slab):
         err = _lib().repro_accum_step_slab(
             K.data_ptr(), idx.data_ptr(), coef.data_ptr(), Cin.data_ptr(),
             float(a), out.data_ptr(), R, N, d, rows, int(K.dtype == torch.bfloat16),
@@ -337,7 +347,7 @@ def accum_grow_slabs(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor,
         return out, TtG.zero_(), TtC.zero_()
     G32 = torch.empty((R, d), dtype=torch.float32, device=dev)
     _int32(R=R, N=N, Bd=B * d)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), autotune.launch_range(accum_grow_slabs):
         err = _lib().repro_accum_grow_slabs(
             K.data_ptr(), idx.data_ptr(), coef.data_ptr(), Cin.data_ptr(),
             float(a), out.data_ptr(), G32.data_ptr(), TtG.data_ptr(),
@@ -367,7 +377,7 @@ def accum_apply_scalar(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, *
         raise ValueError(f"d/bd = {d // bd} exceeds the grid's 65535 y-blocks")
     out = torch.empty((R, d), dtype=K.dtype, device=dev)
     _int32(R=R, N=N, md=m * d)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), autotune.launch_range(accum_apply_scalar):
         err = _lib().repro_accum_apply_scalar(
             K.data_ptr(), idx.data_ptr(), coef.data_ptr(), out.data_ptr(), R, N,
             m, d, bm, bd, int(K.dtype == torch.bfloat16), _stream(dev))

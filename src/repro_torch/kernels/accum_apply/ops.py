@@ -12,8 +12,10 @@ names: ``sketch_right_kernel`` ("accum_apply"), ``sketch_both_kernel``
 ("sketch_both"), ``accum_grow_kernel`` ("accum_grow") and
 ``matfree_cols_kernel`` ("matfree_cols") measure their candidates on the
 caller's tensors at the first call of a key; ``sketch_step_kernel`` only
-looks the table up.  The plain versions have no geometry, so the CPU route
-never measures.
+looks the table up.  Every key carries ``kernel.source_hash()``, the hash of
+``csrc/accum_apply.cu`` and its nvcc flags, so a geometry measured on an
+earlier version of the source is a miss.  The plain versions have no
+geometry, so the CPU route never measures.
 """
 from __future__ import annotations
 
@@ -53,7 +55,8 @@ def autotune_blocks(R: int, N: int, d: int, m: int, dtype: torch.dtype,
     """(bm,) for the column gather: measured-cache hit, else the static
     geometry.  The table side only — it never times anything; the entry
     points below measure on their real tensors and persist the winner."""
-    hit = autotune.lookup("accum_apply", (R, N, d, m), dtype, device, arity=1)
+    hit = autotune.lookup("accum_apply", (R, N, d, m), dtype, device, arity=1,
+                          source=K_.source_hash())
     return hit if hit is not None else autotune.STATIC_TABLE["accum_apply"]
 
 
@@ -69,7 +72,8 @@ def autotune_both_blocks(n: int, device, d: int = 0, m: int = 0,
     """(bm,) for the gather of the fused kernels: measured-cache hit first
     (when ``d``/``m`` identify the shape), else the static geometry."""
     if d and m:
-        hit = autotune.lookup("sketch_both", (n, d, m), dtype, device, arity=1)
+        hit = autotune.lookup("sketch_both", (n, d, m), dtype, device, arity=1,
+                              source=K_.source_hash())
         if hit is not None:
             return hit
     return autotune.STATIC_TABLE["sketch_both"]
@@ -100,7 +104,7 @@ def matfree_cols_kernel(Xq: torch.Tensor, landmarks: torch.Tensor,
     blocks = autotune.measured_blocks(
         "matfree_cols", (nq, p, d, m, kernel), Xq.dtype, Xq.device,
         _rows_candidates(MATFREE_ROWS, nq, fb), run, fb,
-        concrete=autotune.is_concrete(Xc, Lc, coef32))
+        concrete=autotune.is_concrete(Xc, Lc, coef32), source=K_.source_hash())
     return run(blocks)
 
 
@@ -132,7 +136,7 @@ def sketch_both_kernel(K: torch.Tensor, sk: AccumSketch
     blocks = autotune.measured_blocks(
         "sketch_both", (n, sk.d, sk.m), K.dtype, K.device,
         _gemm_candidates(n, fb), run, fb,
-        concrete=autotune.is_concrete(Kc, idx, coef32))
+        concrete=autotune.is_concrete(Kc, idx, coef32), source=K_.source_hash())
     return run(blocks)
 
 
@@ -157,7 +161,7 @@ def sketch_right_kernel(K: torch.Tensor, sk: AccumSketch) -> torch.Tensor:
     blocks = autotune.measured_blocks(
         "accum_apply", (R, N, d, m), K.dtype, K.device, _gemm_candidates(R, fb),
         lambda c: _apply_right(Kc, idx, coef32, c), fb,
-        concrete=autotune.is_concrete(Kc, idx, coef32))
+        concrete=autotune.is_concrete(Kc, idx, coef32), source=K_.source_hash())
     return _apply_right(Kc, idx, coef32, blocks)
 
 
@@ -223,5 +227,5 @@ def accum_grow_kernel(K: torch.Tensor, idx_blk: torch.Tensor,
         "accum_grow", (R, N, d, B), K.dtype, K.device,
         _gemm_candidates(R, fb),
         lambda c: K_.accum_grow_slabs(Kc, idx, coef32, Cc, a, bm=c[0]), fb,
-        concrete=autotune.is_concrete(Kc, idx, coef32, Cc))
+        concrete=autotune.is_concrete(Kc, idx, coef32, Cc), source=K_.source_hash())
     return K_.accum_grow_slabs(Kc, idx, coef32, Cc, a, out=out, bm=blocks[0])

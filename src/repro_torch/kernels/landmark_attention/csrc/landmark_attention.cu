@@ -17,22 +17,26 @@
 //
 // The TPU kernel kept k̃ and M whole in VMEM (LA:80–82).  At the decode shape
 // (L = 1024, Dh = Dv = 128, float32) they are 512 KB each against a block's
-// 227 KB of shared memory, so here every problem walks its keys in tiles
-// with an online softmax (running max, denominator and accumulator per
-// query row), flash-attention style.  Blocks run in parallel and in no
-// order, so where one problem's keys are split across blocks (flash-decoding:
-// the decode shape has only G = 4 query rows per problem, 32 problems at
-// batch 4, far too few blocks for 132 SMs) each block writes its partial
-// (max, denominator, accumulator) to a scratch and a second launch combines
-// the pieces in split order.  No float atomics: every sum has one owner and
-// a fixed order, so results are the same bits from run to run.
+// 227 KB of shared memory, so here every problem walks its keys with an
+// online softmax (running max, denominator and accumulator per query row),
+// flash-attention style.  Blocks run in parallel and in no order, so where
+// one problem's keys are split across blocks (flash-decoding: the decode
+// shape has only G = 4 query rows per problem, 32 problems at batch 4, far
+// too few blocks for 132 SMs) each block writes its partial (max,
+// denominator, accumulator) to a scratch and the pieces are combined in
+// split order: by the last block of the problem to arrive on the decode
+// sweep, by a second launch on the tensor-core sweep.  No float atomics:
+// every sum has one owner and a fixed order, so results are the same bits
+// from run to run.
 //
 // Two sweeps, chosen by the number of query rows S of a problem:
 //
-//   S ≤ 8 (decode: G rows a problem), attend_partial_kernel<8>: bound by
-//     bytes (k̃ and M read once, 34 MB at batch 4; about 2 MFLOP a problem).
-//     IEEE float32 FMA, 32-key tiles, 256 threads, the split over keys gives
-//     512 blocks.  Not yet redesigned.
+//   S ≤ 8 (decode: G rows a problem; landmark_stats' BmV where L ≤ 8),
+//     attend_decode_kernel: bound by bytes (k̃ and M read once, 33.6 MB at
+//     batch 4, against 67 MFLOP).  One warp reads one key row a step with a
+//     16-byte load a lane, serves all of the problem's rows from registers,
+//     and keeps several rows in flight; the splits are combined in the same
+//     launch (see the kernel's note below).
 //
 //   S > 8 (the F-stage of accum_attention, landmark_stats' BmV sweep),
 //     attend_mma_kernel: bound by operations, 2·S·L·(Dh + Dv) a problem
@@ -67,13 +71,14 @@
 // 1.5% of the work, and the Newton–Schulz iteration that consumes W
 // amplifies its error.
 //
-// Launch geometry: the rows a block (8 on the decode sweep; 64 or 128 on
-// the tensor-core sweep) are chosen by the measured autotune cache
-// (kernel.py).  They decide which block computes a row, never a sum's
-// order: a row's scores and accumulator are one warp's (or one thread's)
-// k-ordered sums over the same key tiles, the key tile is a function of the
-// shape, and the key splits are fixed by the shape (kernel.py `plan`), so
-// every candidate gives the same bits.
+// Launch geometry: the rows a block (64 or 128 on the tensor-core sweep) are
+// chosen by the measured autotune cache (kernel.py).  They decide which
+// block computes a row, never a sum's order: a row's scores and accumulator
+// are one warp's k-ordered sums over the same key tiles, the key tile is a
+// function of the shape, and the key splits are fixed by the shape
+// (kernel.py `plan`), so every candidate gives the same bits.  The decode
+// sweep has one geometry ("8 rows a block": all of a problem's S ≤ 8 rows),
+// and its key partition (splits, then warps) is fixed by the shape as well.
 //
 // Plain C interface, loaded with ctypes by kernel.py.  Each entry launches
 // on the caller's stream and returns cudaGetLastError().
@@ -82,6 +87,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -108,17 +116,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Per-thread tiles of the IEEE sweeps for BQ query rows a block (8: the
-// decode sweep; 64: landmark_stats' W half).  Scores: RS rows × CS keys of
-// the BQ × 32 tile; accumulator: RA rows × CA columns of the BQ × 128 tile.
-// Rows are strided by the number of thread rows, columns by the number of
-// thread columns, so a warp reads neighbouring words of shared memory.
+// Per-thread tiles of landmark_stats' W half (64 landmark rows a block):
+// scores, RS rows × CS keys of the 64 × 32 tile.  Rows are strided by the
+// number of thread rows, columns by the number of thread columns, so a warp
+// reads neighbouring words of shared memory.
 template <int BQ> struct Shape;
-template <> struct Shape<64> { static constexpr int RS = 4, CS = 2, RA = 4, CA = 8; };
-template <> struct Shape<8> { static constexpr int RS = 1, CS = 1, RA = 1, CA = 4; };
+template <> struct Shape<64> { static constexpr int RS = 4, CS = 2; };
 
-// Shared memory, in floats: Q (BQ × QS), Kᵀ (Dh × 33), M (32 × 128),
-// scores (BQ × 33), and the running max, denominator and rescale per row.
+// Shared memory, in floats: Q (BQ × QS), Kᵀ (Dh × 33), a 32 × 128 tile the
+// W half leaves unused, scores (BQ × 33), and the running max, denominator
+// and rescale per row.
 __host__ __device__ inline int q_stride(int Dh) { return Dh | 1; }
 __host__ __device__ inline size_t smem_floats(int bq, int Dh) {
   return (size_t)bq * q_stride(Dh) + (size_t)Dh * kTLP + kTL * kDVT + bq * kTLP + 3 * bq;
@@ -209,116 +216,377 @@ __device__ __forceinline__ void softmax_step(float* Ps, float* m_s, float* d_s, 
 }
 
 // --------------------------------------------------------------------------
-// The decode sweep (S ≤ 8 rows a problem, BQ = 8) of both kernels
-// (landmark_attention's whole work, landmark_stats' BmV half), IEEE FMA.
+// The decode sweep (S ≤ 8 query rows a problem): attend_decode_kernel.
 //
-//   grid.x: row blocks of BQ query rows; grid.y: splits of the key axis
-//   (tiles_per_split tiles of 32 keys each); grid.z: problem × value chunk.
+// Replaces LA:54 `landmark_attention` at S ≤ 8 (the G = 4 query rows of a
+// GQA group at each decode step of the sketched cache) and serves the BmV
+// half of LA:138 `landmark_stats` where L ≤ 8.  Bound by bytes: at the
+// decode shape (P = 32 problems, L = 1024 slots, Dh = Dv = 128, float32) it
+// reads 33.6 MB — 10.0 µs at 3.35 TB/s — and does 67 MFLOP, 1 µs at the
+// float32 FMA rate.  Measured there (NVIDIA H100 80GB HBM3, 700.00 W;
+// chip_smoke.py): 0.0125 ms of device time, 81% of the byte bound
+// (2.7 TB/s), in one launch — against 0.0384 ms and two launches for the
+// IEEE tile sweep it replaces (26%).
 //
-// With one split the block writes out = acc / d in the output type; with
-// more it writes its (max, denominator, unnormalized accumulator) to the
-// scratch for attend_combine_kernel.
+// Design, for the card's memory system:
+//   * Every byte is read once, 16 bytes a lane.  A warp reads a whole key
+//     row (and value row) a step: lane l takes head-dim elements 4l .. 4l+3
+//     (of each 128-element half where Dh > 128) and value columns
+//     col0 + 4l .. col0 + 4l+3, with one 16-byte load (float32) or 8-byte
+//     load (bfloat16) each; rows that are not 16-byte aligned, or whose
+//     width is not a multiple of 4, take element loads.  No integer division
+//     in the address arithmetic.
+//   * The problem's G query rows live in registers, split by lanes the same
+//     way, so every key row read serves all G rows.
+//   * A warp reads U keys at once (8 at the decode shape; fewer where the
+//     rows or the head dim would spill registers, `Decode`): U key rows and
+//     U value rows in flight, 8 KB a warp at the decode shape, before any of
+//     them is consumed.  With two blocks of 8 warps on an SM (128 registers
+//     a thread) that is up to 128 KB in flight per SM, against the ~25 KB
+//     the card needs (3.35 TB/s × ~1 µs over 132 SMs).
+//   * The last block's combine stages the splits' maxima and denominators
+//     in shared memory with one round of loads and unrolls its loads of
+//     their accumulators.  A first version whose combine waited on each
+//     split's load in turn (and whose butterfly sat in local memory) took
+//     0.0290 ms at 16 splits and 0.0200 ms at 4; this one 0.0169 and 0.0142
+//     (scripts/bench_landmark.py --decode --plans, same card).
+//   * The U·G partial dot products of a lane (32 at the decode shape) are
+//     summed across the warp by a transposing butterfly (U·G − 1 shuffles
+//     where a plain one would take 5 a dot), which leaves lane l with the
+//     score of (row, key) = ((l >> SHIFT) / U, (l >> SHIFT) % U); the online
+//     softmax then takes one expf a lane, and each weight is broadcast to
+//     the warp for P·V.
+//   * Keys are split across warps and blocks, never rows: warp w of block
+//     (split s) takes keys [(s·W + w)·run, +run), run a multiple of U, and
+//     keeps its own running max, denominator and G × 4-column accumulator a
+//     lane.  A block merges its W warps in warp order through shared
+//     memory; with more than one split it writes its partial to the
+//     scratch, and the last block of the problem to arrive (an integer
+//     arrival counter behind __threadfence, reset by that block) combines
+//     the splits in split order.  One launch; no float atomics.
+//   * The partition is kernel.py `plan`'s, a function of the shape alone,
+//     so two runs give the same bits.
+//
+//   grid.x: splits of the key axis; grid.y: problem × value chunk of 128
+//   columns; blockDim.x: 32 · W.
 // --------------------------------------------------------------------------
-template <typename T, typename TO, int BQ>
-__global__ void __launch_bounds__(kThreads)
-    attend_partial_kernel(const T* __restrict__ q, const T* __restrict__ keys,
-                          const T* __restrict__ vals, const float* __restrict__ bias,
-                          TO* __restrict__ out, float* __restrict__ pm, float* __restrict__ pd,
-                          float* __restrict__ pacc, int P, int S, int Lk, int Dh, int Dv,
-                          int n_valid, int tiles_per_split, float scale) {
-  using Sh = Shape<BQ>;
-  constexpr int TXA = kDVT / Sh::CA, TYA = BQ / Sh::RA;
-  static_assert(TXA * TYA == kThreads, "accumulator tile must use every thread");
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* KsT = Qs + BQ * q_stride(Dh);
-  float* Ms = KsT + Dh * kTLP;
-  float* Ps = Ms + kTL * kDVT;
-  float* m_s = Ps + BQ * kTLP;
-  float* d_s = m_s + BQ;
-  float* c_s = d_s + BQ;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kDecodeMaxWarps = 8;
+constexpr int kDecodeMaxSplits = 64;  // kernel.py DECODE_MAX_SPLITS
 
+// The G query rows (S rounded up to 1, 2, 4 or 8) a decode instantiation
+// holds, with NCH halves of 128 head-dim elements a key row; U keys a warp
+// reads at once: U·NCH ≤ 8 float4 registers of keys, U·G ≤ 32 dot products
+// a lane, and 2 where the 8 rows' queries and accumulators already take 64
+// registers (U divides kernel.py's runs of 8 keys); V = U·G scores a batch,
+// lane l holding score l >> SHIFT after the butterfly; REC floats a partial
+// (accumulator G × 128, then G maxima and G denominators), RS that rounded
+// up to whole float4s.
+__host__ __device__ constexpr int decode_batch_of(int G, int NCH) {
+  return G == 8 ? 2 : (8 / NCH < 32 / G ? 8 / NCH : 32 / G);
+}
+template <int G, int NCH> struct Decode {
+  static constexpr int U = decode_batch_of(G, NCH);
+  static constexpr int V = U * G;
+  static constexpr int SHIFT = V >= 32 ? 0 : V == 16 ? 1 : V == 8 ? 2 : 3;
+  static constexpr int REC = G * (kDVT + 2);
+  static constexpr int RS = (REC + 3) & ~3;
+  static_assert(V >= 4 && V <= 32 && 8 % U == 0, "a batch's scores fill the warp");
+};
+
+__host__ __device__ inline int decode_rows(int S) {
+  return S <= 1 ? 1 : S <= 2 ? 2 : S <= 4 ? 4 : 8;
+}
+__host__ __device__ inline int decode_batch(int S, int Dh) {
+  return decode_batch_of(decode_rows(S), Dh > 128 ? 2 : 1);
+}
+// A block's shared memory: the warps' partials, or the last block's
+// staging of the splits' maxima, denominators and weights.
+template <int G, int NCH>
+__host__ __device__ inline size_t decode_smem_bytes(int warps) {
+  const size_t recs = (size_t)warps * Decode<G, NCH>::RS, stage = 3 * kDecodeMaxSplits * G;
+  return (recs > stage ? recs : stage) * sizeof(float);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Whether rows of n elements from p take one load of 4 elements: n a
+// multiple of 4 and p aligned to 4 elements (then every row is).
+template <typename T>
+__device__ __forceinline__ bool vec4(const T* p, int n) {
+  return n % 4 == 0 && (reinterpret_cast<size_t>(p) & (4 * sizeof(T) - 1)) == 0;
+}
+
+// Elements col .. col+3 of a row of n, widened to float32; those past n are
+// 0.  VEC: one 16-byte (float32) or 8-byte (bfloat16) load; else elements.
+template <bool VEC, typename T>
+__device__ __forceinline__ float4 load4(const T* row, int col, int n) {
+  if constexpr (VEC) {
+    return col < n ? ld4(row + col) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = col + i < n ? to_f32(row[col + i]) : 0.0f;
+    return make_float4(e[0], e[1], e[2], e[3]);
+  }
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+// One step of the transposing butterfly over x[0 .. 2·HALF): a lane keeps
+// the half named by its lane bit HALF << SHIFT and adds its partner's copy
+// of it, then the next step halves again.
+template <int HALF, int SHIFT, int V>
+__device__ __forceinline__ void transpose_step(float (&x)[V], int lane) {
+  if constexpr (HALF >= 1) {
+    const bool upper = (lane & (HALF << SHIFT)) != 0;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const float keep = upper ? x[HALF + i] : x[i];
+      const float send = upper ? x[i] : x[HALF + i];
+      x[i] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, HALF << SHIFT));
+    }
+    transpose_step<HALF / 2, SHIFT, V>(x, lane);
+  }
+}
+
+// The warp's sums of x[0 .. V) over its 32 lanes, transposed: after log2 V
+// halving steps lane l holds the sum of index l >> SHIFT over the lanes of
+// its step partners, and the remaining 5 − log2 V steps add the lanes that
+// hold the same index (commutative, so those lanes agree bit for bit).
+template <int V, int SHIFT>
+__device__ __forceinline__ float transpose_sum(float (&x)[V], int lane) {
+  transpose_step<V / 2, SHIFT, V>(x, lane);
+  float v = x[0];
+#pragma unroll
+  for (int o = (1 << SHIFT) / 2; o >= 1; o /= 2) v = __fadd_rn(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// One warp's walk over its keys k0 .. k1−1, U at a time, into its running
+// max, denominator and accumulator (value columns col0 + 4·lane .. +3) of
+// each row, the same in every lane.  VEC: key and value rows take one load
+// of 4 elements (the branch is taken once, outside the loop).
+template <typename T, int G, int NCH, bool VEC>
+__device__ __forceinline__ void decode_walk(const float4 (&qv)[G][NCH], const T* keys,
+                                            const T* vals, const float* bias, int k0, int k1,
+                                            int Dh, int Dv, int col0, int mask_from,
+                                            float scale, int lane, float (&m_run)[G],
+                                            float (&d_run)[G], float4 (&acc)[G]) {
+  using D = Decode<G, NCH>;
+  constexpr int U = D::U, V = D::V, SHIFT = D::SHIFT;
+  const int own = lane >> SHIFT, g_own = own / U, u_own = own % U;
+  for (int b0 = k0; b0 < k1; b0 += U) {
+    // U key rows and U value rows in flight before any is consumed; keys
+    // past the end are zero (runs are whole batches, so only Lk cuts)
+    float4 kr[U][NCH], vr[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool ok = b0 + u < k1;
+      const T* kp = keys + (size_t)(b0 + u) * Dh;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+        kr[u][c] = ok ? load4<VEC>(kp, 128 * c + 4 * lane, Dh)
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      vr[u] = ok ? load4<VEC>(vals + (size_t)(b0 + u) * Dv, col0 + 4 * lane, Dv)
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    float x[V];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float s = 0.0f;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) s = dot4(qv[g][c], kr[u][c], s);
+        x[g * U + u] = s;
+      }
+    const float dot = transpose_sum<V, SHIFT>(x, lane);
+    // this lane's score: keys past the end get −inf (weight exactly 0), keys
+    // ≥ mask_from the logit −1e30 (LA:105, LA:119)
+    const int key = b0 + u_own;
+    float sc = -INFINITY;
+    if (key < k1) {
+      const float b = bias != nullptr ? bias[key] : 0.0f;
+      sc = key < mask_from ? __fadd_rn(__fmul_rn(dot, scale), b) : kMasked;
+    }
+    // the batch's max of each row over its U keys, then the new running max
+    float mt = sc;
+#pragma unroll
+    for (int o = 1 << SHIFT; o < (U << SHIFT); o <<= 1)
+      mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, o));
+    float mo = m_run[0];
+#pragma unroll
+    for (int g = 1; g < G; ++g)
+      if (g_own == g) mo = m_run[g];
+    const float mn_own = fmaxf(mo, mt);
+    const float p_own = expf(sc - mn_own);
+    // every lane: rescale the old terms of each row, then add the batch's
+    // weights in key order
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float mn = __shfl_sync(kFull, mn_own, (g * U) << SHIFT);
+      const float c = expf(m_run[g] - mn);
+      m_run[g] = mn;
+      float d = __fmul_rn(d_run[g], c);
+      float4 a = make_float4(acc[g].x * c, acc[g].y * c, acc[g].z * c, acc[g].w * c);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p = __shfl_sync(kFull, p_own, (g * U + u) << SHIFT);
+        d = __fadd_rn(d, p);
+        a.x = fmaf(p, vr[u].x, a.x);
+        a.y = fmaf(p, vr[u].y, a.y);
+        a.z = fmaf(p, vr[u].z, a.z);
+        a.w = fmaf(p, vr[u].w, a.w);
+      }
+      d_run[g] = d;
+      acc[g] = a;
+    }
+  }
+}
+
+template <typename T, typename TO, int G, int NCH>
+__global__ void __launch_bounds__(kDecodeMaxWarps * 32, 2)
+    attend_decode_kernel(const T* __restrict__ q, const T* __restrict__ keys,
+                         const T* __restrict__ vals, const float* __restrict__ bias,
+                         TO* __restrict__ out, float* __restrict__ part,
+                         int* __restrict__ arrivals, int S, int Lk, int Dh, int Dv,
+                         int mask_from, int run, float scale) {
+  using D = Decode<G, NCH>;
+  constexpr int REC = D::REC, RS = D::RS;
+  extern __shared__ __align__(16) float dsm[];
+  __shared__ int last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int ndv = (Dv + kDVT - 1) / kDVT;
-  const int prob = blockIdx.z / ndv, col0 = (blockIdx.z % ndv) * kDVT;
-  const int row0 = blockIdx.x * BQ, split = blockIdx.y, nsplit = gridDim.y;
-  const int ntiles = (Lk + kTL - 1) / kTL;
-  const int tile0 = split * tiles_per_split;
-  const int tile1 = min(tile0 + tiles_per_split, ntiles);
+  const int z = blockIdx.y, prob = z / ndv, col0 = (z - prob * ndv) * kDVT;
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int k0 = (split * nw + warp) * run, k1 = min(k0 + run, Lk);
+  const bool vq = vec4(q, Dh), vkv = vec4(keys, Dh) && vec4(vals, Dv);
   q += (size_t)prob * S * Dh;
   keys += (size_t)prob * Lk * Dh;
   vals += (size_t)prob * Lk * Dv;
   if (bias != nullptr) bias += (size_t)prob * Lk;
 
-  load_q<T, BQ>(Qs, q, row0, S, Dh);
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    m_s[r] = -INFINITY;
-    d_s[r] = 0.0f;
+  // this warp's running max, denominator and accumulator of each row
+  float m_run[G], d_run[G];
+  float4 acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m_run[g] = -INFINITY;
+    d_run[g] = 0.0f;
+    acc[g] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  const int txa = threadIdx.x % TXA, tya = threadIdx.x / TXA;
-  float acc[Sh::RA][Sh::CA];
+  if (k0 < k1) {
+    float4 qv[G][NCH];
 #pragma unroll
-  for (int i = 0; i < Sh::RA; ++i)
+    for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int j = 0; j < Sh::CA; ++j) acc[i][j] = 0.0f;
+      for (int c = 0; c < NCH; ++c) {
+        const T* row = q + (size_t)g * Dh;
+        const int col = 128 * c + 4 * lane;
+        qv[g][c] = g >= S ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                   : vq   ? load4<true>(row, col, Dh)
+                          : load4<false>(row, col, Dh);
+      }
+    if (vkv)
+      decode_walk<T, G, NCH, true>(qv, keys, vals, bias, k0, k1, Dh, Dv, col0, mask_from,
+                                   scale, lane, m_run, d_run, acc);
+    else
+      decode_walk<T, G, NCH, false>(qv, keys, vals, bias, k0, k1, Dh, Dv, col0, mask_from,
+                                    scale, lane, m_run, d_run, acc);
+  }
 
-  for (int tile = tile0; tile < tile1; ++tile) {
-    const int key0 = tile * kTL;
-    __syncthreads();  // the previous tile's Kᵀ, M and scores are consumed
-    load_keys<T>(KsT, keys, key0, Lk, Dh);
-    for (int e = threadIdx.x; e < kTL * kDVT; e += kThreads) {
-      const int t = e / kDVT, c = e - t * kDVT;
-      const int key = key0 + t, col = col0 + c;
-      Ms[e] = (key < Lk && col < Dv) ? to_f32(vals[(size_t)key * Dv + col]) : 0.0f;
-    }
-    __syncthreads();
-    score_tile<BQ>(Qs, KsT, Ps, bias, key0, Lk, n_valid, Dh, scale);
-    __syncthreads();
-    softmax_step<BQ>(Ps, m_s, d_s, c_s);
-    __syncthreads();
+  // the warps' partials to shared memory (a warp with no keys: max −inf,
+  // weight 0), then the block's, merged in warp order
+  float* rec = dsm + warp * RS;
 #pragma unroll
-    for (int i = 0; i < Sh::RA; ++i) {
-      const float c = c_s[tya + TYA * i];
+  for (int g = 0; g < G; ++g) reinterpret_cast<float4*>(rec + g * kDVT)[lane] = acc[g];
+  if (lane == 0) {
 #pragma unroll
-      for (int j = 0; j < Sh::CA; ++j) acc[i][j] *= c;
-    }
-#pragma unroll 4
-    for (int t = 0; t < kTL; ++t) {
-      float a[Sh::RA], b[Sh::CA];
-#pragma unroll
-      for (int i = 0; i < Sh::RA; ++i) a[i] = Ps[(tya + TYA * i) * kTLP + t];
-#pragma unroll
-      for (int j = 0; j < Sh::CA; ++j) b[j] = Ms[t * kDVT + txa + TXA * j];
-#pragma unroll
-      for (int i = 0; i < Sh::RA; ++i)
-#pragma unroll
-        for (int j = 0; j < Sh::CA; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int g = 0; g < G; ++g) {
+      rec[G * kDVT + g] = m_run[g];
+      rec[G * kDVT + G + g] = d_run[g];
     }
   }
   __syncthreads();
+  float* mine = nsplit > 1 ? part + ((size_t)z * nsplit + split) * REC : nullptr;
+  for (int e = threadIdx.x; e < G * kDVT; e += blockDim.x) {
+    const int g = e / kDVT, col = e % kDVT;
+    float M = -INFINITY;
+    for (int w = 0; w < nw; ++w) M = fmaxf(M, dsm[w * RS + G * kDVT + g]);
+    float den = 0.0f, a = 0.0f;
+    for (int w = 0; w < nw; ++w) {
+      const float* r = dsm + w * RS;
+      const float wt = expf(r[G * kDVT + g] - M);
+      den = fmaf(wt, r[G * kDVT + G + g], den);
+      a = fmaf(wt, r[e], a);
+    }
+    if (mine == nullptr) {
+      if (g < S && col0 + col < Dv) store(out + ((size_t)prob * S + g) * Dv + col0 + col, a / den);
+    } else {
+      mine[e] = a;
+      if (col == 0) {
+        mine[G * kDVT + g] = M;
+        mine[G * kDVT + G + g] = den;
+      }
+    }
+  }
+  if (mine == nullptr) return;
 
-#pragma unroll
-  for (int i = 0; i < Sh::RA; ++i) {
-    const int r = tya + TYA * i, row = row0 + r;
-    if (row >= S) continue;
-    const size_t base = (size_t)prob * S + row;
-#pragma unroll
-    for (int j = 0; j < Sh::CA; ++j) {
-      const int col = col0 + txa + TXA * j;
-      if (col >= Dv) continue;
-      if (nsplit == 1)
-        store(out + base * Dv + col, acc[i][j] / d_s[r]);
-      else
-        pacc[((size_t)split * P * S + base) * Dv + col] = acc[i][j];
-    }
+  // the last block of this problem and value chunk to arrive combines the
+  // splits in split order and resets the counter for the next launch
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(arrivals + z, 1) == nsplit - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the splits' maxima and denominators staged in shared memory at once,
+  // then each split's weight exp(m_s − max) for each row
+  const float* all = part + (size_t)z * nsplit * REC;
+  float* sm = dsm;
+  float* sd = sm + nsplit * G;
+  float* sw = sd + nsplit * G;
+  for (int i = threadIdx.x; i < nsplit * G; i += blockDim.x) {
+    const float* r = all + (size_t)(i / G) * REC + G * kDVT + i % G;
+    sm[i] = __ldcg(r);
+    sd[i] = __ldcg(r + G);
   }
-  if (nsplit > 1 && col0 == 0) {
-    for (int r = threadIdx.x; r < BQ; r += kThreads) {
-      if (row0 + r >= S) continue;
-      const size_t at = (size_t)split * P * S + (size_t)prob * S + row0 + r;
-      pm[at] = m_s[r];
-      pd[at] = d_s[r];
-    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nsplit * G; i += blockDim.x) {
+    const int g = i % G;
+    float M = -INFINITY;
+    for (int s = 0; s < nsplit; ++s) M = fmaxf(M, sm[s * G + g]);
+    sw[i] = expf(sm[i] - M);
   }
+  __syncthreads();
+  for (int e = threadIdx.x; e < G * kDVT; e += blockDim.x) {
+    const int g = e / kDVT, col = e % kDVT;
+    if (g >= S || col0 + col >= Dv) continue;
+    float den = 0.0f, a = 0.0f;
+    const float* r = all + e;
+#pragma unroll 8
+    for (int s = 0; s < nsplit; ++s) {
+      const float w = sw[s * G + g];
+      den = fmaf(w, sd[s * G + g], den);
+      a = fmaf(w, __ldcg(r + (size_t)s * REC), a);
+    }
+    store(out + ((size_t)prob * S + g) * Dv + col0 + col, a / den);
+  }
+  if (threadIdx.x == 0) arrivals[z] = 0;
 }
 
 // Combine the splits of one output row in split order:
@@ -537,7 +805,7 @@ __device__ __forceinline__ bool can_vec(const T* p, int width) {
 //
 // With one split the block writes out = acc / d in the output type; with
 // more it writes its (max, denominator, unnormalized accumulator) to the
-// scratch for attend_combine_kernel, as attend_partial_kernel does.
+// scratch for attend_combine_kernel.
 // --------------------------------------------------------------------------
 template <typename T, typename TO, int NW, int KT>
 __global__ void __launch_bounds__(NW * 32, 1)
@@ -761,26 +1029,87 @@ cudaError_t combine(const float* pm, const float* pd, const float* pacc, void* o
   return cudaGetLastError();
 }
 
-// The decode sweep (S ≤ 8): 8 rows a block, 32-key tiles, IEEE FMA.
+// Allow `bytes` of dynamic shared memory to the kernel `kern` on the current
+// device.  The attribute belongs to the function on a device, so it is set
+// once for each (kernel, device) and raised only when a launch needs more;
+// launches within 48 KB need none.
+cudaError_t allow_smem(const void* kern, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  struct Allowed {
+    const void* kern;
+    int dev;
+    size_t bytes;
+  };
+  static std::mutex lock;
+  static std::vector<Allowed> allowed;
+  const std::lock_guard<std::mutex> hold(lock);
+  for (Allowed& a : allowed)
+    if (a.kern == kern && a.dev == dev) {
+      if (a.bytes >= bytes) return cudaSuccess;
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (e == cudaSuccess) a.bytes = bytes;
+      return e;
+    }
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) allowed.push_back({kern, dev, bytes});
+  return e;
+}
+
+// The decode sweep (S ≤ 8): G rows a warp, `warps` warps a block, `run` keys
+// a warp, nsplit ≤ kDecodeMaxSplits splits; `part` and `arrivals` serve
+// nsplit > 1.  Its shared memory stays within 48 KB (8 warps × 4.2 KB at
+// G = 8).
+template <typename T, typename TO, int G, int NCH>
+cudaError_t launch_decode_rows(const void* q, const void* keys, const void* vals,
+                               const float* bias, void* out, float* part, int* arrivals, int P,
+                               int S, int Lk, int Dh, int Dv, int n_valid, int nsplit, int run,
+                               int warps, float scale, cudaStream_t stream) {
+  const int ndv = (Dv + kDVT - 1) / kDVT;
+  attend_decode_kernel<T, TO, G, NCH><<<dim3(nsplit, P * ndv), 32 * warps,
+                                        decode_smem_bytes<G, NCH>(warps), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(keys), static_cast<const T*>(vals), bias,
+      static_cast<TO*>(out), part, arrivals, S, Lk, Dh, Dv, n_valid, run, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TO, int NCH>
+cudaError_t launch_decode_dh(const void* q, const void* keys, const void* vals,
+                             const float* bias, void* out, float* part, int* arrivals, int P,
+                             int S, int Lk, int Dh, int Dv, int n_valid, int nsplit, int run,
+                             int warps, float scale, cudaStream_t s) {
+  switch (decode_rows(S)) {
+    case 1:
+      return launch_decode_rows<T, TO, 1, NCH>(q, keys, vals, bias, out, part, arrivals, P, S,
+                                               Lk, Dh, Dv, n_valid, nsplit, run, warps, scale, s);
+    case 2:
+      return launch_decode_rows<T, TO, 2, NCH>(q, keys, vals, bias, out, part, arrivals, P, S,
+                                               Lk, Dh, Dv, n_valid, nsplit, run, warps, scale, s);
+    case 4:
+      return launch_decode_rows<T, TO, 4, NCH>(q, keys, vals, bias, out, part, arrivals, P, S,
+                                               Lk, Dh, Dv, n_valid, nsplit, run, warps, scale, s);
+    default:
+      return launch_decode_rows<T, TO, 8, NCH>(q, keys, vals, bias, out, part, arrivals, P, S,
+                                               Lk, Dh, Dv, n_valid, nsplit, run, warps, scale, s);
+  }
+}
+
 template <typename T, typename TO>
 cudaError_t launch_decode(const void* q, const void* keys, const void* vals, const float* bias,
-                          void* out, float* pm, float* pd, float* pacc, int P, int S, int Lk,
-                          int Dh, int Dv, int n_valid, int nsplit, int tiles_per_split,
-                          float scale, cudaStream_t stream) {
-  constexpr int BQ = 8;
-  const size_t smem = smem_floats(BQ, Dh) * sizeof(float);
-  auto kern = attend_partial_kernel<T, TO, BQ>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
-  const int ndv = (Dv + kDVT - 1) / kDVT;
-  const dim3 grid((S + BQ - 1) / BQ, nsplit, P * ndv);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(keys), static_cast<const T*>(vals), bias,
-      static_cast<TO*>(out), pm, pd, pacc, P, S, Lk, Dh, Dv, n_valid, tiles_per_split, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || nsplit == 1) return e;
-  return combine<TO>(pm, pd, pacc, out, P * S, Dv, nsplit, stream);
+                          void* out, float* part, int* arrivals, int P, int S, int Lk, int Dh,
+                          int Dv, int n_valid, int nsplit, int run, int warps, float scale,
+                          cudaStream_t s) {
+  if (S < 1 || S > 8 || Dh < 1 || Dh > 256 || warps < 1 || warps > kDecodeMaxWarps ||
+      nsplit < 1 || nsplit > kDecodeMaxSplits || run < 1 || run % decode_batch(S, Dh) != 0 ||
+      (nsplit > 1 && (part == nullptr || arrivals == nullptr)))
+    return cudaErrorInvalidValue;
+  if (Dh > 128)
+    return launch_decode_dh<T, TO, 2>(q, keys, vals, bias, out, part, arrivals, P, S, Lk, Dh,
+                                      Dv, n_valid, nsplit, run, warps, scale, s);
+  return launch_decode_dh<T, TO, 1>(q, keys, vals, bias, out, part, arrivals, P, S, Lk, Dh, Dv,
+                                    n_valid, nsplit, run, warps, scale, s);
 }
 
 // The tensor-core sweep (S > 8): 16·NW rows a block, KT-key tiles.
@@ -792,8 +1121,7 @@ cudaError_t launch_mma(const void* q, const void* keys, const void* vals, const 
   constexpr int BQ = 16 * NW;
   const size_t smem = mma_smem_bytes<T>(BQ, KT, Dh);
   auto kern = attend_mma_kernel<T, TO, NW, KT>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), smem);
   if (e != cudaSuccess) return e;
   const int ndv = (Dv + kDVT - 1) / kDVT;
   const dim3 grid((S + BQ - 1) / BQ, nsplit, P * ndv);
@@ -805,8 +1133,8 @@ cudaError_t launch_mma(const void* q, const void* keys, const void* vals, const 
   return combine<TO>(pm, pd, pacc, out, P * S, Dv, nsplit, stream);
 }
 
-// The sweep with bq rows a block: 8 takes the decode sweep, 64 and 128 the
-// tensor-core sweep (4 or 8 warps) at the shape's key tile.
+// The tensor-core sweep with NW warps (64 or 128 rows a block) at the shape's
+// key tile.
 template <typename T, typename TO, int NW>
 cudaError_t launch_mma_tiled(const void* q, const void* keys, const void* vals,
                              const float* bias, void* out, float* pm, float* pd, float* pacc,
@@ -821,20 +1149,28 @@ cudaError_t launch_mma_tiled(const void* q, const void* keys, const void* vals,
                                    n_valid, nsplit, tiles_per_split, scale, s);
 }
 
+// The sweep with bq rows a block: 8 takes the decode sweep (`per` keys a warp,
+// `warps` warps a block, the split partials in `scratch` and `arrivals`), 64
+// and 128 the tensor-core sweep (4 or 8 warps, `per` key tiles a split; its
+// partial maxima, denominators and accumulators at the head of `scratch`).
 template <typename T, typename TO>
 cudaError_t dispatch_attend(int bq, const void* q, const void* keys, const void* vals,
-                            const float* bias, void* out, float* pm, float* pd, float* pacc,
-                            int P, int S, int Lk, int Dh, int Dv, int n_valid, int nsplit,
-                            int tiles_per_split, float scale, cudaStream_t s) {
+                            const float* bias, void* out, float* scratch, int* arrivals, int P,
+                            int S, int Lk, int Dh, int Dv, int n_valid, int nsplit, int per,
+                            int warps, float scale, cudaStream_t s) {
   if (bq == 8)
-    return launch_decode<T, TO>(q, keys, vals, bias, out, pm, pd, pacc, P, S, Lk, Dh, Dv,
-                                n_valid, nsplit, tiles_per_split, scale, s);
+    return launch_decode<T, TO>(q, keys, vals, bias, out, scratch, arrivals, P, S, Lk, Dh, Dv,
+                                n_valid, nsplit, per, warps, scale, s);
+  const size_t rows = (size_t)nsplit * P * S;
+  float* pm = scratch;
+  float* pd = scratch != nullptr ? pm + rows : nullptr;
+  float* pacc = scratch != nullptr ? pd + rows : nullptr;
   if (bq == 64)
     return launch_mma_tiled<T, TO, 4>(q, keys, vals, bias, out, pm, pd, pacc, P, S, Lk, Dh,
-                                      Dv, n_valid, nsplit, tiles_per_split, scale, s);
+                                      Dv, n_valid, nsplit, per, scale, s);
   if (bq == 128)
     return launch_mma_tiled<T, TO, 8>(q, keys, vals, bias, out, pm, pd, pacc, P, S, Lk, Dh,
-                                      Dv, n_valid, nsplit, tiles_per_split, scale, s);
+                                      Dv, n_valid, nsplit, per, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -878,27 +1214,31 @@ cudaError_t check_attend(int bq, int Dh, int* fits) {
     return cudaSuccess;
   }
   cudaFuncAttributes attr;
-  const cudaError_t e = cudaFuncGetAttributes(&attr, attend_partial_kernel<T, TO, 8>);
+  const cudaError_t e =
+      Dh > 128 ? cudaFuncGetAttributes(&attr, attend_decode_kernel<T, TO, 8, 2>)
+               : cudaFuncGetAttributes(&attr, attend_decode_kernel<T, TO, 8, 1>);
   if (e != cudaSuccess) return e;
-  return check_launch(attr, kThreads, smem_floats(8, Dh) * sizeof(float), fits);
+  return check_launch(attr, kDecodeMaxWarps * 32,
+                      Dh > 128 ? decode_smem_bytes<8, 2>(kDecodeMaxWarps)
+                               : decode_smem_bytes<8, 1>(kDecodeMaxWarps),
+                      fits);
 }
 
 template <typename T>
 cudaError_t launch_stats(const void* qt, const void* kt, const void* k, const void* v, float* W,
-                         float* BmV, float* pm, float* pd, float* pacc, int P, int L, int S,
-                         int Dh, int Dv, int n_valid, int l_valid, int nsplit,
-                         int tiles_per_split, int bs, float scale, cudaStream_t stream) {
+                         float* BmV, float* scratch, int* arrivals, int P, int L, int S, int Dh,
+                         int Dv, int n_valid, int l_valid, int nsplit, int per, int warps,
+                         int bs, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats(64, Dh) * sizeof(float);
   auto kern = landmark_softmax_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), smem);
   if (e != cudaSuccess) return e;
   kern<<<dim3((L + 63) / 64, 1, P), kThreads, smem, stream>>>(
       static_cast<const T*>(qt), static_cast<const T*>(kt), W, L, Dh, l_valid, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return dispatch_attend<T, float>(bs, qt, k, v, nullptr, BmV, pm, pd, pacc, P, L, S, Dh, Dv,
-                                   n_valid, nsplit, tiles_per_split, scale, stream);
+  return dispatch_attend<T, float>(bs, qt, k, v, nullptr, BmV, scratch, arrivals, P, L, S, Dh,
+                                   Dv, n_valid, nsplit, per, warps, scale, stream);
 }
 
 }  // namespace
@@ -906,35 +1246,39 @@ cudaError_t launch_stats(const void* qt, const void* kt, const void* k, const vo
 extern "C" {
 
 // out (P, S, Dv) in q's type from q (P, S, Dh), kt (P, L, Dh), M (P, L, Dv),
-// bias (P, L) float32 or null.  pm, pd (nsplit, P, S) and pacc (nsplit, P, S,
-// Dv) float32 are scratch, unused when nsplit = 1.  bq is 8 where S ≤ 8,
-// else 64 or 128; tiles_per_split counts tiles of kernel.py's key_tile.
+// bias (P, L) float32 or null.  bq is 8 where S ≤ 8 (the decode sweep: `per`
+// keys a warp, `warps` warps a block; scratch holds P·⌈Dv/128⌉·nsplit
+// partials of ⌈S⌉₂·130 floats, ⌈S⌉₂ = S rounded up to 1, 2, 4 or 8, and
+// arrivals P·⌈Dv/128⌉ int counters at 0), else 64 or 128 (the tensor-core
+// sweep: `per` tiles of kernel.py's key_tile a split; scratch holds maxima
+// and denominators (nsplit, P, S) and accumulators (nsplit, P, S, Dv);
+// arrivals unused).  Scratch and arrivals are unused when nsplit = 1.
 int repro_landmark_attention(const void* q, const void* kt, const void* M, const float* bias,
-                             void* out, float* pm, float* pd, float* pacc, int P, int S, int L,
-                             int Dh, int Dv, int nsplit, int tiles_per_split, int bq,
+                             void* out, float* scratch, int* arrivals, int P, int S, int L,
+                             int Dh, int Dv, int nsplit, int per, int warps, int bq,
                              float scale, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16
-             ? dispatch_attend<__nv_bfloat16, __nv_bfloat16>(bq, q, kt, M, bias, out, pm, pd,
-                                                             pacc, P, S, L, Dh, Dv, L, nsplit,
-                                                             tiles_per_split, scale, s)
-             : dispatch_attend<float, float>(bq, q, kt, M, bias, out, pm, pd, pacc, P, S, L, Dh,
-                                             Dv, L, nsplit, tiles_per_split, scale, s);
+             ? dispatch_attend<__nv_bfloat16, __nv_bfloat16>(bq, q, kt, M, bias, out, scratch,
+                                                             arrivals, P, S, L, Dh, Dv, L,
+                                                             nsplit, per, warps, scale, s)
+             : dispatch_attend<float, float>(bq, q, kt, M, bias, out, scratch, arrivals, P, S,
+                                             L, Dh, Dv, L, nsplit, per, warps, scale, s);
 }
 
 // W (P, L, L) and BmV (P, L, Dv) float32 from qt, kt (P, L, Dh), k (P, S, Dh),
-// v (P, S, Dv).  Scratch as above with L rows; nsplit ≥ 2 splits S; bs
+// v (P, S, Dv).  Scratch and arrivals as above with L rows over S keys; bs
 // landmark rows a block of the BmV sweep (8 where L ≤ 8, else 64 or 128).
 int repro_landmark_stats(const void* qt, const void* kt, const void* k, const void* v, float* W,
-                         float* BmV, float* pm, float* pd, float* pacc, int P, int L, int S,
-                         int Dh, int Dv, int n_valid, int l_valid, int nsplit,
-                         int tiles_per_split, int bs, float scale, int is_bf16, void* stream) {
+                         float* BmV, float* scratch, int* arrivals, int P, int L, int S, int Dh,
+                         int Dv, int n_valid, int l_valid, int nsplit, int per, int warps,
+                         int bs, float scale, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_stats<__nv_bfloat16>(qt, kt, k, v, W, BmV, pm, pd, pacc, P, L, S, Dh,
-                                               Dv, n_valid, l_valid, nsplit, tiles_per_split,
+  return is_bf16 ? launch_stats<__nv_bfloat16>(qt, kt, k, v, W, BmV, scratch, arrivals, P, L,
+                                               S, Dh, Dv, n_valid, l_valid, nsplit, per, warps,
                                                bs, scale, s)
-                 : launch_stats<float>(qt, kt, k, v, W, BmV, pm, pd, pacc, P, L, S, Dh, Dv,
-                                       n_valid, l_valid, nsplit, tiles_per_split, bs, scale, s);
+                 : launch_stats<float>(qt, kt, k, v, W, BmV, scratch, arrivals, P, L, S, Dh,
+                                       Dv, n_valid, l_valid, nsplit, per, warps, bs, scale, s);
 }
 
 // *fits = whether the sweep with bq rows a block and head dim Dh can launch

@@ -10,7 +10,9 @@ own ragged edges.  The rows a block come from the measured autotune cache
 of the accum_apply kernels (``autotune``), under the reference's kinds
 ``landmark_attention`` (bq) and ``landmark_stats`` (bs): the first CUDA call
 at a key times the candidates the device can launch (``kernel.fits``) and
-persists the winner; without a measurement the static geometry that fits
+persists the winner, keyed by the hash of ``csrc/landmark_attention.cu``
+(``kernel.source_hash``) so that no geometry outlives a redesign of the
+source; without a measurement the static geometry that fits
 (``kernel.static_rows``) launches.  The key tile and splits are fixed by
 the shape, so every candidate gives the same bits.
 
@@ -80,7 +82,7 @@ def landmark_attend(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
         "landmark_attention", (P, S, Dh, M.shape[1], M.shape[2]), q.dtype, q.device,
         _bq_candidates(S, fb, Dh, q.dtype, q.dtype, q.device),
         lambda c: K_.landmark_attention(*args, bq=c[0]), fb,
-        concrete=autotune.is_concrete(*args[:3]))
+        concrete=autotune.is_concrete(*args[:3]), source=K_.source_hash())
     out = K_.landmark_attention(*args, bq=bq)
     return out[0] if single else out
 
@@ -106,7 +108,7 @@ def landmark_stats_fused(qt: torch.Tensor, kt: torch.Tensor, k: torch.Tensor,
         "landmark_stats", (P, S, Dh, L, Dv), dt, qt.device,
         _bq_candidates(L, fb, Dh, dt, torch.float32, qt.device),
         lambda c: K_.landmark_stats(*args, bs=c[0]), fb,
-        concrete=autotune.is_concrete(*args))
+        concrete=autotune.is_concrete(*args), source=K_.source_hash())
     W, BmV = K_.landmark_stats(*args, bs=bs)
     return (W[0], BmV[0]) if single else (W, BmV)
 

@@ -113,6 +113,8 @@ def test_key_names_the_card(monkeypatch):
     assert key == "accum_apply|1|2|3|4|bfloat16|cuda:NVIDIA H100 80GB HBM3"
     assert AT._key("accum_apply", (1, 2, 3, 4), torch.float32, CPU) == \
         "accum_apply|1|2|3|4|float32|cpu"
+    assert AT._key("accum_apply", (1, 2, 3, 4), torch.float32, CPU, "0123abcd") == \
+        "accum_apply|1|2|3|4|float32|cpu|src:0123abcd"
 
 
 def test_default_file_and_gate(monkeypatch):
@@ -216,6 +218,56 @@ def test_stale_hit_outside_the_candidates_is_a_miss(tmp_path, monkeypatch, kind,
     assert json.loads(path.read_text()) == {AT._key(kind, key, torch.float32, CPU): [128]}
 
 
+@pytest.mark.parametrize("kind,key", [("accum_apply", SHAPE),
+                                      ("landmark_attention", (32, 4, 128, 1024, 128))])
+def test_an_entry_of_another_source_hash_is_a_miss(tmp_path, monkeypatch, kind, key):
+    """The key carries the hash of the kernel's CUDA source: an entry
+    recorded under one hash is served untimed under the same hash; under
+    another (the next version of the source) it is a miss — the fallback
+    with the gate off, a measurement recorded beside it under the new hash
+    with the gate on — and so is every entry recorded without a hash."""
+    path = tmp_path / "at.json"
+    monkeypatch.setenv(AT.ENV_CACHE, str(path))
+    monkeypatch.setenv(AT.ENV_GATE, "1")
+    old, new, f32 = "a" * 16, "b" * 16, torch.float32
+    cands, calls = [(64,), (128,)], []
+    AT.record(kind, key, f32, CPU, (64,), source=old)
+    assert AT.measured_blocks(kind, key, f32, CPU, cands, _bench(calls), (128,),
+                              concrete=True, source=old) == (64,)
+    assert calls == []
+    monkeypatch.setenv(AT.ENV_GATE, "0")
+    assert AT.measured_blocks(kind, key, f32, CPU, cands, _bench(calls), (128,),
+                              concrete=True, source=new) == (128,)
+    assert calls == []
+    monkeypatch.setenv(AT.ENV_GATE, "1")
+    got = AT.measured_blocks(kind, key, f32, CPU, cands, _bench(calls, slow={(64,)}),
+                             (64,), concrete=True, source=new)
+    assert got == (128,) and set(calls) == set(cands)
+    assert json.loads(path.read_text()) == {AT._key(kind, key, f32, CPU, old): [64],
+                                            AT._key(kind, key, f32, CPU, new): [128]}
+    assert AT.lookup(kind, key, f32, CPU, arity=1) is None
+
+
+def test_entry_points_key_by_their_library_source(tmp_path, monkeypatch):
+    """The entry points look entries up under the hash that names their
+    library: an entry under ``kernel.source_hash()`` is served, one written
+    without a hash (as before the key carried it) or under another falls
+    back to the static geometry.  The hash follows the source's bytes."""
+    path = tmp_path / "at.json"
+    monkeypatch.setenv(AT.ENV_CACHE, str(path))
+    f32, key = torch.float32, SHAPE
+    assert KT.library_path(KT.SOURCE).name == f"libaccum_apply-{KT.source_hash(KT.SOURCE)}.so"
+    assert LK.source_hash() == KT.source_hash(LK.SOURCE) != KT.source_hash(KT.SOURCE)
+    for source, want in ((None, (64,)), ("f" * 16, (64,)), (KT.source_hash(), (16,))):
+        path.write_text(json.dumps({AT._key("accum_apply", key, f32, CPU, source): [16]}))
+        monkeypatch.setattr(AT, "_MEM", {})
+        assert OT.autotune_blocks(*key, f32, CPU) == want
+    one, two = tmp_path / "one.cu", tmp_path / "two.cu"
+    one.write_text("// one\n")
+    two.write_text("// two\n")
+    assert len({KT.source_hash(one), KT.source_hash(two), KT.source_hash(KT.SOURCE)}) == 3
+
+
 def test_corrupt_file_falls_back_with_health_record(tmp_path, monkeypatch):
     path = tmp_path / "at.json"
     path.write_text("{not json at all")
@@ -285,6 +337,26 @@ def test_measuring_counts_launches_apart(monkeypatch):
     assert fake_kernel.launches == 1 and not AT._measuring
 
 
+def test_launch_ranges_only_when_asked(monkeypatch):
+    """A wrapper launches inside a ``launch:<wrapper>`` profiler range only
+    while ``PROFILE_RANGES`` is set, and never while candidates are timed."""
+
+    def fake_kernel():
+        pass
+
+    def ranges(**flags):
+        for name, value in flags.items():
+            monkeypatch.setattr(AT, name, value)
+        with torch.profiler.profile() as prof:
+            with AT.launch_range(fake_kernel):
+                torch.ones(2).add_(1)
+        return [e.name for e in prof.events() if e.name.startswith("launch:")]
+
+    assert ranges(PROFILE_RANGES=False) == []
+    assert ranges(PROFILE_RANGES=True) == ["launch:fake_kernel"]
+    assert ranges(PROFILE_RANGES=True, _measuring=True) == []
+
+
 def test_exception_in_a_timed_launch_propagates(tmp_path, monkeypatch):
     monkeypatch.setenv(AT.ENV_GATE, "1")
 
@@ -317,17 +389,19 @@ def test_gate_off_and_empty_cache_give_the_static_geometry(monkeypatch):
         assert KT._rows(None, kind) == 64
     assert LK.static_bq(4) == 8 and LK.static_bq(9) == 128
     assert LK.static_bq(1024, "landmark_stats") == 128
-    # the key tile of each sweep: 32 keys on the decode sweep (S ≤ 8), 64 on
+    # the key tile of each sweep: the 8 keys a warp of the decode sweep reads
+    # at once (4 for a head dim above 128, 2 where it holds 8 rows), 64 on
     # the tensor-core sweep, 32 there for a float32 head dim above 192
     f32, bf16 = torch.float32, torch.bfloat16
-    assert LK.key_tile(4, 128, f32) == 32 and LK.key_tile(9, 128, f32) == 64
+    assert LK.key_tile(4, 128, f32) == 8 and LK.key_tile(9, 128, f32) == 64
+    assert LK.key_tile(1, 256, f32) == 4 and LK.key_tile(5, 128, bf16) == 2
     assert LK.key_tile(9, 192, f32) == 64 and LK.key_tile(9, 193, f32) == 32
     assert LK.key_tile(9, 256, bf16) == 64
     assert LK.block_rows(8) == (8,) and LK.block_rows(9) == (64, 128)
     # the key splits of the decode, F-stage and landmark_stats shapes:
-    # flash-decoding over 512 blocks in 32-key tiles; one split of 16
-    # 64-key tiles; three splits of 171, 171 and 170 64-key tiles
-    assert LK.plan(32, 4, 1024, 128, 128, f32) == (16, 2)
+    # flash-decoding over 256 blocks of 8 warps, 16 keys a warp; one split of
+    # 16 64-key tiles; three splits of 171, 171 and 170 64-key tiles
+    assert LK.plan(32, 4, 1024, 128, 128, f32) == (8, 16)
     assert LK.plan(32, 32768, 1024, 128, 128, f32) == (1, 16)
     assert LK.plan(32, 1024, 32768, 128, 128, f32, min_split=2) == (3, 171)
 

@@ -209,24 +209,27 @@ def test_cuda_autotune_candidates_match_static_accum(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P,S,L,Dh,Dv", [(4, 300, 77, 64, 130), (32, 4, 1024, 128, 128),
-                                         (2, 1030, 256, 128, 128)])
+                                         (2, 1030, 256, 128, 128), (3, 3, 517, 256, 200),
+                                         (2, 8, 100, 64, 200), (5, 1, 1000, 128, 128)])
 def test_cuda_autotune_candidates_match_static_landmark(cuda_device, P, S, L, Dh, Dv,
                                                         dtype):
     """Every rows-a-block candidate the device can launch gives the static
-    geometry's bits: landmark_attention over its query rows, landmark_stats'
-    BmV sweep over its landmark rows (W has one geometry)."""
+    geometry's bits (the static geometry where it fits, ``static_rows``: a
+    float32 head dim of 256 takes 64 rows): landmark_attention over its
+    query rows, landmark_stats' BmV sweep over its landmark rows (W has one
+    geometry)."""
     g = torch.Generator().manual_seed(P + S)
     q, kt = _randn(g, (P, S, Dh), cuda_device, dtype), _randn(g, (P, L, Dh), cuda_device, dtype)
     M = _randn(g, (P, L, Dv), cuda_device, dtype)
     bias = torch.log(torch.rand((P, L), generator=g) + 0.1).to(cuda_device)
-    fb = (LK.static_bq(S),)
+    fb = (LK.static_rows(S, Dh, dtype, dtype, cuda_device),)
     cands = LO._bq_candidates(S, fb, Dh, dtype, dtype, cuda_device)
     assert cands[0] == fb and all(LK.fits(c[0], Dh, dtype, dtype, cuda_device)
                                   for c in cands)
     _candidates_equal_static(lambda c: (LK.landmark_attention(q, kt, M, bias, bq=c[0]),),
                              cands, fb)
     k, v = _randn(g, (P, S, Dh), cuda_device, dtype), _randn(g, (P, S, Dv), cuda_device, dtype)
-    fb = (LK.static_bq(L, "landmark_stats"),)
+    fb = (LK.static_rows(L, Dh, dtype, torch.float32, cuda_device, "landmark_stats"),)
     cands = LO._bq_candidates(L, fb, Dh, dtype, torch.float32, cuda_device)
     _candidates_equal_static(lambda c: LK.landmark_stats(kt, kt, k, v, bs=c[0]), cands, fb)
     torch.cuda.synchronize()
@@ -260,7 +263,8 @@ def test_cuda_measuring_counts_apart_and_writes_only_the_winner(cuda_device, tmp
     for x, y in zip(got, want):
         assert torch.equal(x, y)
     key = (n, n, d, B)
-    assert AT.lookup("accum_grow", key, torch.float32, cuda_device, arity=1) is not None
+    assert AT.lookup("accum_grow", key, torch.float32, cuda_device, arity=1,
+                     source=KT.source_hash()) is not None
 
     def no_timing(*a):
         raise AssertionError("a cache hit timed a candidate")
@@ -283,13 +287,20 @@ def _randn(g, shape, dev, dtype=torch.float32):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P,S,L,Dh,Dv", [(6, 4, 100, 32, 32), (3, 130, 77, 16, 24),
                                          (2, 70, 40, 64, 200), (4, 1, 1024, 128, 128),
-                                         (2, 300, 33, 80, 80)])
+                                         (2, 300, 33, 80, 80), (32, 4, 1024, 128, 128),
+                                         (5, 3, 1000, 64, 200), (3, 8, 517, 256, 200),
+                                         (7, 1, 333, 128, 64), (2, 4, 4097, 256, 128),
+                                         (2, 2, 7, 64, 5)])
 def test_cuda_landmark_attention_matches_plain(cuda_device, P, S, L, Dh, Dv, dtype):
     """Odd S and L (the kernel masks its ragged edges), Dv above one value
     tile, the decode shape with a bias lane mixing log-mass with −1e30, and
-    a row whose every landmark is masked (uniform weights, no NaN).  float32
-    at 1e-5 of max|plain| (sum order only); bfloat16 output at 2e-2 (one
-    rounding of the output)."""
+    a row whose every landmark is masked (uniform weights, no NaN).  The
+    decode sweep (S ≤ 8) at 1, 2, 3, 4 and 8 rows, over slot counts that
+    are no multiple of a warp's, a block's or a split's run, at head dims
+    64 to 256, value widths of two chunks (200) and of no multiple of 4 (5,
+    element loads), and with no bias.  float32 at 1e-5 of max|plain| (sum
+    order only); bfloat16 output at 2e-2 (one rounding of the output).  Two
+    calls give the same bits."""
     g = torch.Generator().manual_seed(P + S + L)
     q, kt = _randn(g, (P, S, Dh), cuda_device, dtype), _randn(g, (P, L, Dh), cuda_device, dtype)
     M = _randn(g, (P, L, Dv), cuda_device, dtype)
@@ -303,6 +314,7 @@ def test_cuda_landmark_attention_matches_plain(cuda_device, P, S, L, Dh, Dv, dty
     _close(out, plain, 1e-5 if dtype == torch.float32 else 2e-2)
     _close(LK.landmark_attention(q, kt, M), LR.landmark_attention_ref(q, kt, M),
            1e-5 if dtype == torch.float32 else 2e-2)
+    assert torch.equal(LK.landmark_attention(q, kt, M, bias), out)
     torch.cuda.synchronize()
 
 
@@ -310,11 +322,15 @@ def test_cuda_landmark_attention_matches_plain(cuda_device, P, S, L, Dh, Dv, dty
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P,L,S,Dh,Dv,nv,lv", [(3, 50, 300, 16, 24, 270, 45),
                                                (2, 130, 2049, 64, 64, 2049, 130),
-                                               (1, 7, 5, 8, 5, 3, 2)])
+                                               (1, 7, 5, 8, 5, 3, 2),
+                                               (3, 4, 2049, 128, 200, 2000, 4),
+                                               (2, 8, 700, 256, 128, 650, 8),
+                                               (4, 1, 100, 64, 64, 99, 1)])
 def test_cuda_landmark_stats_matches_plain(cuda_device, P, L, S, Dh, Dv, nv, lv, dtype):
     """W and BmV with keys ≥ n_valid and landmark columns ≥ l_valid masked,
     against the plain version with the same masks: float32 sums, held at
-    1e-5 of max|plain| (bfloat16 inputs are widened exactly, so the same)."""
+    1e-5 of max|plain| (bfloat16 inputs are widened exactly, so the same).
+    L ≤ 8 takes the decode sweep for BmV, with its n_valid mask."""
     g = torch.Generator().manual_seed(P + L + S)
     qt, kt = _randn(g, (P, L, Dh), cuda_device, dtype), _randn(g, (P, L, Dh), cuda_device, dtype)
     k, v = _randn(g, (P, S, Dh), cuda_device, dtype), _randn(g, (P, S, Dv), cuda_device, dtype)
@@ -323,6 +339,7 @@ def test_cuda_landmark_stats_matches_plain(cuda_device, P, L, S, Dh, Dv, nv, lv,
     assert W.dtype == BmV.dtype == torch.float32
     _close(W, Wr, 1e-5)
     _close(BmV, BmVr, 1e-5)
+    assert torch.equal(LK.landmark_stats(qt, kt, k, v, n_valid=nv, l_valid=lv)[1], BmV)
     torch.cuda.synchronize()
 
 
@@ -400,6 +417,31 @@ def test_cuda_landmark_fits_at_head_dim_256(cuda_device):
         assert LK.fits(64, 256, dtype, out, cuda_device)
         assert LK.fits(8, 256, dtype, out, cuda_device)
     assert LK.key_tile(9, 256, torch.float32) == 32
+
+
+@pytest.mark.cuda
+def test_cuda_decode_sweep_is_one_launch_and_resets_its_counters(cuda_device):
+    """The decode sweep combines its splits in the launch that computes
+    them: one device operation a call, its own kernel, and every arrival
+    counter back at 0 after it, whatever shape the previous call had."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator().manual_seed(5)
+    shapes = [(32, 4, 1024, 128, 128), (3, 1, 4097, 64, 200), (2, 8, 100, 256, 40)]
+    for P, S, L, Dh, Dv in shapes:
+        q, kt = _randn(g, (P, S, Dh), cuda_device), _randn(g, (P, L, Dh), cuda_device)
+        M = _randn(g, (P, L, Dv), cuda_device)
+        assert LK.plan(P, S, L, Dv, Dh, torch.float32)[0] > 1
+        want = LK.landmark_attention(q, kt, M)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = LK.landmark_attention(q, kt, M)
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(ops) == 1 and "attend_decode_kernel" in ops[0], ops
+        assert torch.equal(got, want)
+        assert all(int(buf.count_nonzero()) == 0 for buf in LK._ARRIVALS.values())
 
 
 @pytest.mark.cuda
