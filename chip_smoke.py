@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit), the nvcc version,
-   and builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
-   nvcc for each source, started together).
+   and builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` and
+   the sector probe ``scripts/sector_probe.cu`` (one nvcc for each source,
+   started together).
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and times both beside the kernel's bound:
    CUDA events around a run of back-to-back calls, and the device's own
@@ -13,7 +14,12 @@
    tensor-core attention sweeps also print their TFLOP/s and their share of
    the IEEE-FMA bound and of the 3×TF32 bound (``bound_tc_ms``, ``rate``);
    the decode sweep its share of the byte bound, its TB/s, the device
-   operations a call (one launch), float32 and bfloat16.
+   operations a call (one launch), float32 and bfloat16; matfree_apply its
+   share of its byte, FP32 and SFU bounds (the SFU's 16 results a clock an
+   SM at ``clocks.max.sm``); the column gathers their share of the byte
+   bound and of the sector bound (the distinct 32-byte sectors of the
+   sampled columns, at 3.35 TB/s and at the card's rate for random sectors,
+   measured first by ``scripts/sector_probe.cu``).
    Each autotuned kernel's candidate geometries (rows a block) are held
    against its static geometry bit for bit and timed, and the measured
    autotune cache chooses one at the row's shape (``geometry``).
@@ -90,6 +96,9 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 494.7e12
+# SFU results (ex2, rsqrt) a clock an SM on Hopper (CUDA C++ Programming
+# Guide, throughput of native arithmetic instructions, compute capability 9.0)
+SFU_PER_CLOCK_SM = 16
 
 # the main paths' sizes: operator fit (C is 512 MiB), predict rows, dense K,
 # the dense K of the unit schedule (the widest K of one accum_step_slab)
@@ -116,6 +125,7 @@ SRC = "src/repro_torch/kernels/accum_apply/csrc/accum_apply.cu"
 LSRC = "src/repro_torch/kernels/landmark_attention/csrc/landmark_attention.cu"
 TPU = "src/repro/kernels/accum_apply/kernel.py"
 LTPU = "src/repro/kernels/landmark_attention/kernel.py"
+PROBE = "scripts/sector_probe.cu"
 FAILURES: list[str] = []
 
 
@@ -293,6 +303,97 @@ def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, from ``nvidia-smi`` (clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0].split()[0]) * 1e6
+
+
+def sfu_ms(torch, nops: float) -> float:
+    """The least time for ``nops`` SFU operations (ex2, rsqrt): 16 a clock an
+    SM at the card's highest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return nops / (SFU_PER_CLOCK_SM * sms * sm_clock_hz()) * 1e3
+
+
+def sector_rates(torch, KN, K, samples=(1024, 64), seed: int = 11) -> dict:
+    """The card's rate for reads of random 32-byte sectors, from
+    ``scripts/sector_probe.cu`` on the row-major float32 K (R, N): every row
+    reads S columns drawn uniformly with replacement (as a sketch draws
+    them), one warp a row, in four ways: one element a lane as drawn
+    ("unsorted") and sorted ascending ("sorted"), and the whole 32-byte
+    sector ("sector") or 64-byte segment ("segment64") of each sorted column.
+    Returns {S: {way: {ms, units a row, unit bytes, per_s, gb_per_s}}}:
+    ms from CUDA events (``timed``), units the distinct sectors (segments) a
+    row, per_s the units read a second over all R rows."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(KN.build_source(Path(__file__).resolve().parent / PROBE, {})))
+    lib.repro_sector_probe.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                                       + [ctypes.c_void_p] * 2)
+    lib.repro_sector_probe.restype = ctypes.c_int
+    R, N = K.shape
+    dev = K.device
+    sink = torch.zeros(1, device=dev)
+    blocks = 8 * torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out: dict = {}
+    for S in samples:
+        drawn = torch.randint(0, N, (S,), generator=g, device=dev, dtype=torch.int32)
+        ordered = torch.sort(drawn).values
+        out[S] = {}
+        for way, cols, nbytes in (("unsorted", drawn, 4), ("sorted", ordered, 4),
+                                  ("sector", ordered, 32), ("segment64", ordered, 64)):
+            unit = max(nbytes, 32)
+            units = int(torch.unique(cols.long() // (unit // 4)).numel())
+
+            def run(cols=cols, nbytes=nbytes):
+                err = lib.repro_sector_probe(K.data_ptr(), cols.data_ptr(), R, N, S, nbytes,
+                                             blocks, sink.data_ptr(),
+                                             torch.cuda.current_stream(dev).cuda_stream)
+                if err:
+                    raise RuntimeError(f"sector_probe failed with CUDA error {err}")
+
+            ms, _ = timed(torch, run)
+            per_s = R * units / (ms / 1e3)
+            out[S][way] = dict(ms=ms, units=units, unit_bytes=unit, per_s=per_s,
+                               gb_per_s=per_s * unit / 1e9)
+            print(f"  random {unit}-byte units, S={S} a row, {way}: {ms:.4f} ms for "
+                  f"{R}×{units} units, {per_s / 1e9:.3f} G units/s, "
+                  f"{per_s * unit / 1e9:.1f} GB/s")
+    return out
+
+
+def sector_bound(idx, R: int, isz: int, other_bytes: float, rates: dict) -> dict:
+    """The column gather's floor in sectors: the distinct 32-byte sectors of
+    the sampled columns a row (``isz``-byte elements, rows aligned to 32
+    bytes), R times, plus ``other_bytes`` (idx, coef, Cin, outputs), at
+    3.35 TB/s (``sector_bound_ms``) and at the card's measured rate for
+    random sectors (``sector_rate_ms``: the faster of ``sector_rates``'
+    unsorted and sorted element reads, at the sample count nearest m·d)."""
+    import torch
+
+    sectors = int(torch.unique(idx.reshape(-1).long() // (32 // isz)).numel())
+    near = min(rates, key=lambda s: abs(math.log(s / idx.numel())))
+    per_s = max(rates[near]["unsorted"]["per_s"], rates[near]["sorted"]["per_s"])
+    rest = other_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(sectors_a_row=sectors,
+                sector_bound_ms=R * sectors * 32 / HBM_BYTES_PER_S * 1e3 + rest,
+                sector_rate_ms=R * sectors / per_s * 1e3 + rest,
+                sector_rate_per_s=per_s, sector_rate_at=near)
+
+
+def shares(name: str, dms: float | None, bounds: dict) -> dict:
+    """Print a row's device time as a share of each of its bounds; return
+    {bound name: share}."""
+    got = {k: (v / dms if dms else None) for k, v in bounds.items()}
+    print(f"  {name}: device {dms} ms; " + ", ".join(
+        f"{k} {bounds[k]:.5f} ms ({got[k]:.1%})" if got[k] is not None else f"{k} not measured"
+        for k in bounds))
+    return got
+
+
 def rate(name: str, ms: float, flops: float, b_fma: float, b_tc: float) -> dict:
     """Achieved TFLOP/s of a tensor-core sweep and its share of both bounds:
     IEEE float32 FMA, and 3×TF32 (three tensor-core products a product)."""
@@ -383,7 +484,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {nvcc}")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        list(pool.map(lambda build: build(), (KN.build, LK.build)))
+        list(pool.map(lambda build: build(), (
+            KN.build, LK.build,
+            lambda: KN.build_source(Path(__file__).resolve().parent / PROBE, {}))))
     KN._lib()
     LK._lib()
     print(f"kernel builds: {time.perf_counter() - t0:.1f} s, in parallel")
@@ -453,15 +556,25 @@ def main() -> int:
                                                    bandwidth=bw))
     pms, _ = timed(torch, lambda: ref.landmark_cols_ref(Xb, Lb, cf, gauss))
     nbytes = Xb.numel() * 4 + Lb.numel() * 4 + cf.numel() * 4 + nb * d * 4
-    b, by = bound_ms(nbytes, nb * m * d * (2 * 3 + 7))
+    # each of the n·m·d evaluations: at p = 3, an FMUL, 2 FFMA, 2 FADD, the
+    # clamp and the FFMA into the sum on the FP32 pipe (10 operations, an FMA
+    # counting 2), and one ex2 on the SFU (the Gaussian)
+    evals = nb * m * d
+    mf_bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "fp32": evals * 10 / F32_OPS_PER_S * 1e3, "sfu": sfu_ms(torch, evals)}
+    b = max(mf_bounds.values())
+    by = "bytes" if mf_bounds["bytes"] == b else "operations"
+    mf_shares = shares(f"matfree_apply gaussian f32 n={nb} m={m} d={d} against its bounds "
+                       f"(SFU at {sm_clock_hz() / 1e6:.0f} MHz)", dms, mf_bounds)
     rows["matfree_apply"] = dict(replaces=f"{TPU}:474", max_abs_err=ea,
                                  max_rel_err=er, ms=ms, device_ms=dms,
                                  plain_ms=pms, bound_ms=b, bound_by=by,
-                                 library_ms=None)
+                                 bounds_ms=mf_bounds, share_of_bounds=mf_shares,
+                                 sm_clock_mhz=sm_clock_hz() / 1e6, library_ms=None)
     del plain
     rows["matfree_apply"].update(geometry(
         "matfree_apply", "matfree_cols", (nb, 3, d, m, "gaussian"), torch.float32,
-        OPS._rows_candidates(OPS.MATFREE_ROWS, nb, AT.STATIC_TABLE["matfree_cols"]),
+        OPS._rows_candidates(OPS.MATFREE_ROWS, nb, (KN.matfree_rows(nb),)),
         lambda c: (KN.matfree_apply(Xb, Lb, cf, kernel="gaussian", bandwidth=bw, bm=c[0]),),
         lambda: OPS.matfree_cols_kernel(Xb, Lb, cf, kernel="gaussian", bandwidth=bw)))
     for kern, nu in [("laplacian", 1.5), ("matern", 0.5), ("matern", 1.5),
@@ -514,6 +627,20 @@ def main() -> int:
     opc = KernelOperator(Xc, "gaussian", bw)
     Kc = opc.dense()
     idc, cfc = skc.indices.contiguous(), skc.coef.float().contiguous()
+    # the gathers' floor: the card's rate for random 32-byte sectors on this K
+    print("  the card's rate for random sectors (scripts/sector_probe.cu) on the "
+          f"float32 K ({nc}, {nc}):")
+    rates = sector_rates(torch, KN, Kc)
+
+    def gather_bounds(name, dms, b, idx, R, isz, other):
+        """The gather row's sector bounds beside its byte bound ``b``, each
+        with the device time's share of it (printed)."""
+        sb = sector_bound(idx, R, isz, other, rates)
+        got = shares(f"{name}: {sb['sectors_a_row']} sectors a row, bounds", dms,
+                     {"bytes": b, "sectors": sb["sector_bound_ms"],
+                      "sector rate": sb["sector_rate_ms"]})
+        return dict(sb, share_of_bounds=got)
+
     for dt, tol in [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)]:
         Kt = Kc.to(dt)
         C, W = KN.accum_sketch_both(Kt, idc, cfc)
@@ -531,7 +658,9 @@ def main() -> int:
             rows["accum_sketch_both"] = dict(
                 replaces=f"{TPU}:164", max_abs_err=max(eC, eW),
                 max_rel_err=max(rC, rW), ms=ms, device_ms=dms, plain_ms=pms,
-                bound_ms=b, bound_by=by, library_ms=None)
+                bound_ms=b, bound_by=by, library_ms=None,
+                **gather_bounds("accum_sketch_both f32", dms, b, idc, nc, 4,
+                                m * d * 8 + nc * d * 4 + d * d * 4))
             rows["accum_sketch_both"].update(geometry(
                 "accum_sketch_both", "sketch_both", (nc, d, m), dt,
                 OPS._gemm_candidates(nc, AT.STATIC_TABLE["sketch_both"]),
@@ -558,6 +687,8 @@ def main() -> int:
         b, by = bound_ms(nc * distinct(ida) * isz + nc * d * isz + d * 8, 2 * nc * d)
         print(f"  accum_apply {dt}: {ms:.4f} ms (device {dms}), plain {pms:.4f} ms, "
               f"bound {b:.5f} ms")
+        gb_apply = gather_bounds(f"accum_apply {dt}", dms, b, ida, nc, isz,
+                                 nc * d * isz + d * 8)
         if dt == torch.float32:
             # K S as (Sᵀ Kᵀ)ᵀ through cuSPARSE, with Sᵀ one CSR (d, N) matrix
             St = sketch_csr(torch, ida, cfa, nc, transposed=True)
@@ -569,7 +700,7 @@ def main() -> int:
             rows["accum_apply"] = dict(replaces=f"{TPU}:84", max_abs_err=ea,
                                        max_rel_err=er, ms=ms, device_ms=dms,
                                        plain_ms=pms, bound_ms=b, bound_by=by,
-                                       library_ms=lms)
+                                       library_ms=lms, **gb_apply)
             rows["accum_apply"].update(geometry(
                 "accum_apply", "accum_apply", (nc, nc, d, 1), dt,
                 OPS._gemm_candidates(nc, AT.STATIC_TABLE["accum_apply"]),
@@ -614,12 +745,14 @@ def main() -> int:
                              2 * nc * B * d + 2 * nc * d + 4 * B * d * d)
             print(f"  accum_grow_slabs {dt} B={B}: {ms:.4f} ms (device {dms}), "
                   f"plain {pms:.4f} ms, bound {b:.5f} ms")
+            gb_grow = gather_bounds(f"accum_grow_slabs {dt} B={B}", dms, b, idg, nc, isz,
+                                    2 * nc * d * 4 + B * d * 8 + 2 * d * d * 4)
             if dt == torch.float32 and B == 16:
                 # no one PyTorch call returns C_new with both d×d pieces
                 rows["accum_grow_slabs"] = dict(
                     replaces=f"{TPU}:370", max_abs_err=max(e[0] for e in errs),
                     max_rel_err=max(e[1] for e in errs), ms=ms, device_ms=dms,
-                    plain_ms=pms, bound_ms=b, bound_by=by, library_ms=None)
+                    plain_ms=pms, bound_ms=b, bound_by=by, library_ms=None, **gb_grow)
                 rows["accum_grow_slabs"].update(geometry(
                     "accum_grow_slabs", "accum_grow", (nc, nc, d, B), dt,
                     OPS._gemm_candidates(nc, AT.STATIC_TABLE["accum_grow"]),
@@ -654,7 +787,10 @@ def main() -> int:
     rows["accum_step_slab"] = dict(replaces=f"{TPU}:277", max_abs_err=ea,
                                    max_rel_err=er, ms=ms, device_ms=dms,
                                    plain_ms=pms, bound_ms=b, bound_by=by,
-                                   library_ms=lms)
+                                   library_ms=lms,
+                                   **gather_bounds(f"accum_step_slab f32 N={N_STEP}", dms, b,
+                                                   id8, N_STEP, 4,
+                                                   2 * N_STEP * d * 4 + d * 8))
     # the unit step's geometry is the table's alone, as in the reference
     rows["accum_step_slab"].update(geometry(
         "accum_step_slab", "accum_apply", (N_STEP, N_STEP, d, 1), torch.float32,
@@ -1431,9 +1567,11 @@ def main() -> int:
 
     for name, row in rows.items():
         print(f"  {name}: device ms summed on the paths {on_paths(name)}")
+        sector = (f", sector bound {row['sector_bound_ms']:.5f} ms, at the measured rate "
+                  f"{row['sector_rate_ms']:.5f} ms" if "sector_bound_ms" in row else "")
         print(f"  {name}: {row['ms']:.4f} ms, device {row['device_ms']} ms "
               f"(plain {row['plain_ms']:.4f} ms, "
-              f"bound {row['bound_ms']:.5f} ms by {row['bound_by']}, library "
+              f"bound {row['bound_ms']:.5f} ms by {row['bound_by']}{sector}, library "
               f"{row['library_ms']}); geometry {row.get('geometry')} by "
               f"{row['geometry_by']}")
     # launches: the sum over the main paths of pass 2 and path (m), each

@@ -60,7 +60,7 @@ ENV_GATE = "REPRO_AUTOTUNE"
 # what the gathers launched with before the cache existed, and the faster
 # of the tensor-core attention sweep's two block sizes on the H100
 STATIC_TABLE: dict[str, tuple[int, ...]] = {
-    "matfree_cols": (64,),         # matfree_apply: rows of X a block
+    "matfree_cols": (64,),         # matfree_apply: rows of X a block at small n (kernel.matfree_rows)
     "accum_apply": (64,),          # the gather of accum_apply / accum_step_slab: rows a block
     "sketch_both": (64,),          # accum_sketch_both's gather: rows a block
     "accum_grow": (64,),           # accum_grow_slabs' gather: rows a block

@@ -18,9 +18,10 @@
 //
 // Launch geometry: the rows a block takes are a runtime argument of
 // matfree_apply and of the column gather (kernel.py's ``bm``), chosen by the
-// measured autotune cache (autotune.py).  A block's threads, shared memory
-// and registers do not depend on it, and each output element keeps its one
-// owner and its order of summation, so every row count gives the same bits.
+// measured autotune cache (autotune.py).  A block's threads and registers
+// do not depend on it (the sorted gather's value tile may hold fewer rows),
+// and each output element keeps its one owner and its order of summation, so
+// every row count gives the same bits.
 //
 // Plain C interface, loaded with ctypes by kernel.py.  Each entry launches
 // on the caller's stream and returns cudaGetLastError().
@@ -35,24 +36,38 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-enum KernelKind { GAUSSIAN = 0, LAPLACIAN = 1, MATERN05 = 2, MATERN15 = 3, MATERN25 = 4 };
-
-// The closed forms of core/kernels_math.py (and AA:426 `_kernel_eval`), on
-// the clamped expanded squared distance.  gdenom = 2·bw² rounded to float32
-// on the host, as the reference's weakly typed constant is.
-__device__ __forceinline__ float kernel_value(float d2, int kind, float bw, float gdenom) {
-  if (kind == GAUSSIAN) return expf(-d2 / gdenom);
-  float r = sqrtf(d2 + 1e-30f);
-  if (kind == LAPLACIAN) return expf(-r / bw);
-  r = r / bw;
-  if (kind == MATERN05) return expf(-r);
-  if (kind == MATERN15) {
-    const float c = 1.7320508075688772f;
-    return (1.0f + c * r) * expf(-c * r);
-  }
-  const float c = 2.23606797749979f;
-  return (1.0f + c * r + 5.0f * r * r / 3.0f) * expf(-c * r);
+// ex2.approx and rsqrt.approx on the SFU, with denormal results flushed to 0
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The kernel value from the expanded squared distance of the scaled points,
+// q = scale²·d2 before its clamp at 0 (kernel.py ``matfree_fold``; its
+// constants computed in float64 and rounded once).  Gaussian: scale² =
+// log2(e)/(2·bw²), k = 2^(−q).  Laplacian and Matérn: scale = log2(e)·a
+// (a = 1/bw, √3/bw or √5/bw), s = −√q = −log2(e)·a·r, and
+// k = (1 + p1·s + p2·s²)·2^s (p1 = −ln 2, p2 = (ln 2)²/3 for ν = 2.5: the
+// closed forms' (1 + √3 r/bw) and (1 + √5 r/bw + 5r²/(3bw²)) prefactors in
+// s).  The reference's √(d2 + 1e-30) becomes q·rsqrt(max(q, 1e-30)): the two
+// differ below 1e-15, where both round k to 1.
+template <bool GAUSS>
+__device__ __forceinline__ float folded_value(float q, float p1, float p2) {
+  if constexpr (GAUSS) return ex2_approx(fminf(-q, 0.0f));
+  q = fmaxf(q, 0.0f);
+  const float s = -q * rsqrt_approx(fmaxf(q, 1e-30f));
+  return fmaf(fmaf(p2, s, p1), s, 1.0f) * ex2_approx(s);
+}
+
+// float4 records a landmark takes in shared memory: p ≤ 3 one, p ≤ 7 two,
+// larger p none (the general layout).  kernel.py ``matfree_floats`` mirrors it.
+__host__ __device__ constexpr int matfree_quads(int p) { return p <= 3 ? 1 : (p <= 7 ? 2 : 0); }
 
 // --------------------------------------------------------------------------
 // matfree_apply — replaces AA:474 `matfree_apply`.
@@ -61,76 +76,97 @@ __device__ __forceinline__ float kernel_value(float d2, int kind, float bw, floa
 //
 // Bound on the H100: bytes.  The inputs are X (n·p) and the m·d landmark
 // rows; the output is n·d float32, which dominates (512 MiB at n = 2^21,
-// d = 64).  The m·d·n kernel evaluations (about 13 float32 operations each
-// at p = 3) take less time than writing C at 3.35 TB/s.
+// d = 64: 0.168 ms at 3.35 TB/s).  The m·d·n evaluations cost one ex2 each
+// on the SFU (16 a clock an SM: 0.13 ms at 1.98 GHz for the Gaussian; rsqrt
+// + ex2 for the others) and, at p = 3, FMUL + 2 FFMA + 2 FADD + clamp + FFMA
+// on the FP32 pipe (10 operations, an FMA counting 2: 0.08 ms).
 //
-// Design: a block of 32 × 8 threads takes `rows` rows of X (64 unless the
-// autotune cache chose otherwise) and a group of `jc`
-// output columns (grid.y; all d columns when the group's landmarks fit 48
-// KB).  It stages the group's m·jc landmark rows transposed, (p, m·jc), with
-// their squared norms and coefficients, in shared memory.  A warp takes RB
-// rows at a time (4 when p ≤ 4) with its lanes along the output columns: the
-// lanes read neighbouring landmarks (no bank conflicts) and use each for RB
-// rows held in registers, all lanes read the same rows of X (broadcasts),
-// and they write neighbouring elements of C, so every store is coalesced.  The Cmat of the TPU kernel
-// (ops.expand_coef) is never built: the sum over i < m is the contraction.
+// Design: no division and no expf in the loop.  Both points are scaled by
+// the kernel's `scale` as they are read, so that the expanded distance of
+// the scaled points is the exponent itself.  The prologue stores each
+// landmark as (−2·l_0, …, −2·l_{p−1}, ‖l‖²) of the scaled landmark, one float4
+// for p ≤ 3 (two for p ≤ 7), its coefficient beside it; each row keeps its
+// scaled x and ‖x‖² in registers.  Then q = Σ_k (−2·l_k)·x_k + (‖l‖² + ‖x‖²)
+// is an FMA chain from the first product and two adds, and the Gaussian's
+// value 2^(−max(q, 0)) one clamp and one ex2 (folded_value).  A row and a
+// landmark drawn from it are scaled alike, the factor −2 is exact, and each
+// sum runs in the order of the norms' own chains, so such a self pair gets
+// q = 0 exactly, as with the expanded distance of the reference (a fold of
+// the scale into the landmarks alone rounded there, and the Laplacian's cusp
+// magnified it).  A block of 32 × 8 threads takes `rows` rows of X (512 at
+// large n, kernel.py ``matfree_rows``, unless the autotune cache chose
+// otherwise: the prologue is paid once a block) and a group of `jc` output
+// columns (grid.y; all d columns when the group's landmarks fit 48 KB).  A
+// warp takes RB = 8 rows at a time with its lanes along the output columns:
+// each LDS.128 of a landmark serves 8 rows held in registers, all lanes read
+// the same rows of X (broadcasts), and they write neighbouring elements of C,
+// so every store is coalesced.  The sum over i < m runs in order in one
+// thread, so every row count gives the same bits.  Larger p keeps the
+// weights transposed, (p, nl), and reads x from global memory, one row at a
+// time.  The Cmat of the TPU kernel (ops.expand_coef) is never built: the
+// sum over i < m is the contraction.
 // --------------------------------------------------------------------------
-template <typename T, int P, int RB>
-__global__ void matfree_apply_kernel(const T* __restrict__ X, const T* __restrict__ L,
-                                     const float* __restrict__ coef, float* __restrict__ out,
-                                     int n, int p, int m, int d, int jc, int kind, float bw,
-                                     float gdenom, int rows) {
-  constexpr int PR = P > 0 ? P : 1;   // x held in registers when P > 0
-  extern __shared__ float smem[];
+template <typename T, int Q, int RB, bool GAUSS>
+__global__ void __launch_bounds__(256) matfree_apply_kernel(
+    const T* __restrict__ X, const T* __restrict__ L, const float* __restrict__ coef,
+    float* __restrict__ out, int n, int p, int m, int d, int jc, float scale, float p1,
+    float p2, int rows) {
+  constexpr int W = Q > 0 ? 4 * Q : 1;   // floats of a landmark record (Q > 0)
+  constexpr int PR = Q > 0 ? W - 1 : 1;  // x held in registers (Q > 0)
+  extern __shared__ __align__(16) float smem[];
   const int j0 = blockIdx.y * jc;
   const int jw = min(jc, d - j0);
-  const int nl = m * jw;        // landmark l = i·jw + jj  ↔  row i·d + j0 + jj of L
-  float* sLT = smem;            // (p, nl), transposed
-  float* sL2 = sLT + nl * p;    // (nl,)
-  float* sC = sL2 + nl;         // (nl,)
+  const int nl = m * jw;  // landmark l = i·jw + jj  ↔  row i·d + j0 + jj of L
+  // Q > 0: record l at sW[l·W]: −2·l, zeros, ‖l‖² last, of the scaled
+  // landmark.  Q = 0: −2·l transposed (p, nl), then ‖l‖² (nl).  Then the
+  // coefficients (nl).
+  float* sW = smem;
+  float* sB = sW + (size_t)nl * p;
+  float* sC = Q > 0 ? sW + (size_t)nl * W : sB + nl;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
-  for (int t = tid; t < nl * p; t += nthreads) {
-    const int l = t / p, k = t - l * p;
-    const int i = l / jw, jj = l - i * jw;
-    sLT[k * nl + l] = to_f32(L[(size_t)(i * d + j0 + jj) * p + k]);
-  }
   for (int l = tid; l < nl; l += nthreads) {
     const int i = l / jw, jj = l - i * jw;
+    const T* lr = L + (size_t)(i * d + j0 + jj) * p;
+    float l2 = 0.0f;
+    for (int k = 0; k < p; ++k) {
+      const float v = scale * to_f32(lr[k]);
+      l2 = fmaf(v, v, l2);
+      if constexpr (Q > 0) sW[l * W + k] = -2.0f * v;
+      else sW[k * nl + l] = -2.0f * v;
+    }
+    if constexpr (Q > 0) {
+      for (int k = p; k < W - 1; ++k) sW[l * W + k] = 0.0f;
+      sW[l * W + W - 1] = l2;
+    } else {
+      sB[l] = l2;
+    }
     sC[l] = coef[i * d + j0 + jj];
   }
   __syncthreads();
-  for (int l = tid; l < nl; l += nthreads) {
-    float s = 0.0f;
-    for (int k = 0; k < p; ++k) s += sLT[k * nl + l] * sLT[k * nl + l];
-    sL2[l] = s;
-  }
-  __syncthreads();
 
-  // RB rows at a time per warp: each landmark read from shared memory
-  // serves RB kernel evaluations
   const int r_end = (int)min((long long)n, (long long)(blockIdx.x + 1) * rows);
-  for (int rb = blockIdx.x * rows + threadIdx.y * RB; rb < r_end;
-       rb += blockDim.y * RB) {
-    float xreg[RB][PR];
-    float x2[RB];
+  for (int rb = blockIdx.x * rows + threadIdx.y * RB; rb < r_end; rb += blockDim.y * RB) {
+    float x[RB][PR];
+    float xs[RB];  // ‖x‖² of the scaled row
 #pragma unroll
     for (int q = 0; q < RB; ++q) {
       const T* xr = X + (size_t)min(rb + q, r_end - 1) * p;
-      x2[q] = 0.0f;
-      if (P > 0) {
+      float s = 0.0f;
+      if constexpr (Q > 0) {
 #pragma unroll
         for (int k = 0; k < PR; ++k) {
-          const float v = k < p ? to_f32(xr[k]) : 0.0f;
-          xreg[q][k] = v;
-          x2[q] += v * v;
+          const float v = k < p ? scale * to_f32(xr[k]) : 0.0f;
+          x[q][k] = v;
+          s = fmaf(v, v, s);
         }
       } else {
         for (int k = 0; k < p; ++k) {
-          const float v = to_f32(xr[k]);
-          x2[q] += v * v;
+          const float v = scale * to_f32(xr[k]);
+          s = fmaf(v, v, s);
         }
       }
+      xs[q] = s;
     }
     for (int jj = threadIdx.x; jj < jw; jj += blockDim.x) {
       float acc[RB];
@@ -138,25 +174,31 @@ __global__ void matfree_apply_kernel(const T* __restrict__ X, const T* __restric
       for (int q = 0; q < RB; ++q) acc[q] = 0.0f;
       for (int i = 0; i < m; ++i) {
         const int l = i * jw + jj;
-        const float l2 = sL2[l], c = sC[l];
-        float lk[PR];
-        if (P > 0) {
+        const float c = sC[l];
+        if constexpr (Q > 0) {
+          float w[W];
 #pragma unroll
-          for (int k = 0; k < PR; ++k) lk[k] = k < p ? sLT[k * nl + l] : 0.0f;
-        }
-#pragma unroll
-        for (int q = 0; q < RB; ++q) {
-          float dot = 0.0f;
-          if (P > 0) {
-#pragma unroll
-            for (int k = 0; k < PR; ++k)
-              if (k < p) dot += xreg[q][k] * lk[k];
-          } else {
-            const T* xr = X + (size_t)(rb + q) * p;
-            for (int k = 0; k < p; ++k) dot += to_f32(xr[k]) * sLT[k * nl + l];
+          for (int u = 0; u < Q; ++u) {
+            const float4 v = reinterpret_cast<const float4*>(sW)[l * Q + u];
+            w[4 * u] = v.x;
+            w[4 * u + 1] = v.y;
+            w[4 * u + 2] = v.z;
+            w[4 * u + 3] = v.w;
           }
-          const float d2 = fmaxf(x2[q] + l2 - 2.0f * dot, 0.0f);
-          acc[q] += c * kernel_value(d2, kind, bw, gdenom);
+#pragma unroll
+          for (int q = 0; q < RB; ++q) {
+            float t = w[0] * x[q][0];
+#pragma unroll
+            for (int k = 1; k < PR; ++k) t = fmaf(w[k], x[q][k], t);
+            t += w[W - 1] + xs[q];
+            acc[q] = fmaf(c, folded_value<GAUSS>(t, p1, p2), acc[q]);
+          }
+        } else {
+          const T* xr = X + (size_t)min(rb, r_end - 1) * p;
+          float t = 0.0f;
+          for (int k = 0; k < p; ++k) t = fmaf(sW[k * nl + l], scale * to_f32(xr[k]), t);
+          t += sB[l] + xs[0];
+          acc[0] = fmaf(c, folded_value<GAUSS>(t, p1, p2), acc[0]);
         }
       }
 #pragma unroll
@@ -166,13 +208,13 @@ __global__ void matfree_apply_kernel(const T* __restrict__ X, const T* __restric
   }
 }
 
-template <typename T, int P>
+template <typename T, int Q, bool GAUSS>
 cudaError_t launch_matfree(const void* X, const void* L, const float* coef, float* out, int n,
-                           int p, int m, int d, int jc, int kind, float bw, float gdenom,
+                           int p, int m, int d, int jc, float scale, float p1, float p2,
                            int rows, cudaStream_t stream) {
-  const size_t smem = (size_t)m * jc * (p + 2) * sizeof(float);
-  // four rows per warp step where x is held in registers
-  auto kern = matfree_apply_kernel<T, P, (P > 0 ? 4 : 1)>;
+  const size_t smem = (size_t)m * jc * (Q > 0 ? 4 * Q + 1 : p + 2) * sizeof(float);
+  // eight rows per warp step where x is held in registers
+  auto kern = matfree_apply_kernel<T, Q, (Q > 0 ? 8 : 1), GAUSS>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -180,19 +222,27 @@ cudaError_t launch_matfree(const void* X, const void* L, const float* coef, floa
   }
   const dim3 grid((n + rows - 1) / rows, (d + jc - 1) / jc);
   kern<<<grid, dim3(32, 8), smem, stream>>>(static_cast<const T*>(X), static_cast<const T*>(L),
-                                            coef, out, n, p, m, d, jc, kind, bw, gdenom, rows);
+                                            coef, out, n, p, m, d, jc, scale, p1, p2, rows);
   return cudaGetLastError();
+}
+
+template <typename T, bool GAUSS>
+cudaError_t dispatch_quads(const void* X, const void* L, const float* coef, float* out, int n,
+                           int p, int m, int d, int jc, float scale, float p1, float p2,
+                           int rows, cudaStream_t s) {
+  switch (matfree_quads(p)) {
+    case 1: return launch_matfree<T, 1, GAUSS>(X, L, coef, out, n, p, m, d, jc, scale, p1, p2, rows, s);
+    case 2: return launch_matfree<T, 2, GAUSS>(X, L, coef, out, n, p, m, d, jc, scale, p1, p2, rows, s);
+    default: return launch_matfree<T, 0, GAUSS>(X, L, coef, out, n, p, m, d, jc, scale, p1, p2, rows, s);
+  }
 }
 
 template <typename T>
 cudaError_t dispatch_matfree(const void* X, const void* L, const float* coef, float* out, int n,
-                             int p, int m, int d, int jc, int kind, float bw, float gdenom,
-                             int rows, cudaStream_t s) {
-  // p ≤ 4 (the measured main path has p = 3) keeps x in registers; any
-  // other p reads x from global memory
-  if (p <= 4)
-    return launch_matfree<T, 4>(X, L, coef, out, n, p, m, d, jc, kind, bw, gdenom, rows, s);
-  return launch_matfree<T, 0>(X, L, coef, out, n, p, m, d, jc, kind, bw, gdenom, rows, s);
+                             int p, int m, int d, int jc, int gauss, float scale, float p1,
+                             float p2, int rows, cudaStream_t s) {
+  return gauss ? dispatch_quads<T, true>(X, L, coef, out, n, p, m, d, jc, scale, p1, p2, rows, s)
+               : dispatch_quads<T, false>(X, L, coef, out, n, p, m, d, jc, scale, p1, p2, rows, s);
 }
 
 // --------------------------------------------------------------------------
@@ -247,22 +297,138 @@ cudaError_t launch_left(const void* M, const int* idx, const float* coef, float*
 // the TPU kernels (AA:272, AA:344).  Cout may be Cin itself: each element is
 // read and written by one thread, so the rescale is safe in place.
 //
-// Bound on the H100: bytes.  It needs the R·m·d entries of K at the sampled
-// columns and writes R·d outputs.  The gathered entries lie in separate
-// 32-byte sectors, so the card moves up to 8 times the needed bytes of K
-// (16 times in bfloat16).
+// Bound on the H100: sectors.  It needs the R·m·d entries of K at the
+// sampled columns and writes R·d outputs, but the gathered entries lie in
+// separate 32-byte sectors, so the card moves up to 8 times the needed bytes
+// of K (16 times in bfloat16): the distinct sectors of a row's sampled
+// columns, R times.  Random sectors come at about 30 G/s, sectors read in
+// ascending order along a row at about 48 G/s where a row has 1024 of them
+// (scripts/sector_probe.cu; chip_smoke.py prints both bounds).
 //
-// Design: a block takes `rows` rows (64 unless the autotune cache chose
-// otherwise) and stages idx/coef in shared memory (where they fit 48 KB); a
-// warp takes one row at a time with its lanes along j, so
-// the reads of Cin and the writes are coalesced, and each lane sums its m
-// terms in order.  One pass, no reduction across threads or blocks.
+// Design, for GATHER_SORTED_MIN ≤ m·d ≤ GATHER_SORTED_MAX: each block sorts
+// the launch's m·d (column, slot) pairs once in shared memory (a bitonic
+// sort of 64-bit keys, column above slot).  It then takes its `rows` rows (64
+// unless the autotune cache chose otherwise) in tiles of GATHER_TILE / (m·d)
+// rows: every thread issues GATHER_UNROLL loads before it stores any, the
+// lanes of a warp walk a row's sorted columns, so its loads ascend along the
+// row, and each value lands in a shared-memory tile at its (i, j) slot.  A
+// warp then takes a row of the tile at a time with its lanes along j, sums
+// its m values in order (the same `acc += coef·v` chain as the row-at-a-time
+// kernel below) and writes, so the reads of Cin and the writes are
+// coalesced.  The order of the loads changes no sum: both kernels give the
+// same bits.  An index outside [0, N) sorts last and gives NaN without a
+// load.  Other m·d take the row-at-a-time kernel below (idx and coef staged
+// in shared memory where they fit 48 KB): below 256 columns a row the sort
+// bought 1% at 128 and cost 7% at 64 (B = 2 and 1 at d = 64, float32, on
+// the H100).  One pass over K, no reduction across threads or blocks.
 // --------------------------------------------------------------------------
+constexpr int GATHER_SORTED_MIN = 256;   // m·d of the sorted gather: from …
+constexpr int GATHER_SORTED_MAX = 1024;  // … to
+constexpr int GATHER_TILE = 4096;        // values a block holds at a time (16 KB)
+constexpr int GATHER_UNROLL = 8;         // loads a thread issues before it stores
+constexpr int GATHER_THREADS = 256;
+
+__host__ __device__ inline int pow2_at_least(int v) {
+  int q = 1;
+  while (q < v) q <<= 1;
+  return q;
+}
+
+// rows of a tile of the sorted gather
+__host__ __device__ inline int gather_tile_rows(int md, int rows) {
+  const int t = GATHER_TILE / md < rows ? GATHER_TILE / md : rows;
+  return t > 1 ? t : 1;
+}
+
 template <typename T, typename TO>
-__global__ void sketch_gather_kernel(const T* __restrict__ K, const int* __restrict__ idx,
-                                     const float* __restrict__ coef, const float* Cin, float a,
-                                     float* __restrict__ C32, TO* Cout, int R, int N, int m,
-                                     int d, int staged, int rows) {
+__global__ void __launch_bounds__(GATHER_THREADS) sketch_gather_kernel(
+    const T* __restrict__ K, const int* __restrict__ idx, const float* __restrict__ coef,
+    const float* Cin, float a, float* __restrict__ C32, TO* Cout, int R, int N, int m, int d,
+    int rows) {
+  extern __shared__ __align__(16) unsigned long long skey[];
+  const int md = m * d;
+  const int np2 = pow2_at_least(md);
+  float* sF = reinterpret_cast<float*>(skey + np2);
+  float* sV = sF + md;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int t = tid; t < np2; t += GATHER_THREADS) {
+    skey[t] = t < md ? ((unsigned long long)(unsigned)idx[t] << 32) | (unsigned)t : ~0ull;
+    if (t < md) sF[t] = coef[t];
+  }
+  __syncthreads();
+  for (int k = 2; k <= np2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = tid; t < np2; t += GATHER_THREADS) {
+        const int u = t ^ j;
+        if (u > t) {
+          const unsigned long long x = skey[t], y = skey[u];
+          if ((x > y) == ((t & k) == 0)) {
+            skey[t] = y;
+            skey[u] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  const int tr = gather_tile_rows(md, rows);
+  const int r0 = blockIdx.x * rows;
+  const int r1 = (int)min((long long)R, (long long)r0 + rows);
+  // a thread's first element of a tile, row·md + s, and its step
+  const int row0 = tid / md, s0 = tid - row0 * md;
+  const int dr = GATHER_THREADS / md, ds = GATHER_THREADS - dr * md;
+  for (int rt = r0; rt < r1; rt += tr) {
+    const int nr = min(tr, r1 - rt);
+    const T* Kt = K + (size_t)rt * N;
+    int row = row0, s = s0;
+    while (row < nr) {
+      float v[GATHER_UNROLL];
+      int dst[GATHER_UNROLL];
+#pragma unroll
+      for (int u = 0; u < GATHER_UNROLL; ++u) {
+        dst[u] = -1;
+        if (row < nr) {
+          const unsigned long long key = skey[s];
+          const unsigned col = (unsigned)(key >> 32);
+          dst[u] = row * md + (int)(unsigned)key;
+          v[u] = col < (unsigned)N ? to_f32(Kt[(size_t)row * N + col])
+                                   : __int_as_float(0x7fc00000);
+        }
+        row += dr;
+        s += ds;
+        if (s >= md) {
+          s -= md;
+          ++row;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GATHER_UNROLL; ++u)
+        if (dst[u] >= 0) sV[dst[u]] = v[u];
+    }
+    __syncthreads();
+    for (int rr = threadIdx.y; rr < nr; rr += blockDim.y) {
+      const float* vr = sV + rr * md;
+      for (int j = threadIdx.x; j < d; j += blockDim.x) {
+        float acc = 0.0f;
+        for (int i = 0; i < m; ++i) acc += sF[i * d + j] * vr[i * d + j];
+        const size_t o = (size_t)(rt + rr) * d + j;
+        if (C32 != nullptr) C32[o] = acc;
+        if (Cout != nullptr)
+          store(Cout + o, Cin != nullptr ? __fadd_rn(__fmul_rn(a, Cin[o]), acc) : acc);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The row-at-a-time gather, for m·d above GATHER_SORTED_MAX: a warp takes
+// one row at a time with its lanes along j and reads its m terms in order.
+template <typename T, typename TO>
+__global__ void sketch_gather_rows_kernel(const T* __restrict__ K, const int* __restrict__ idx,
+                                          const float* __restrict__ coef, const float* Cin,
+                                          float a, float* __restrict__ C32, TO* Cout, int R,
+                                          int N, int m, int d, int staged, int rows) {
   extern __shared__ int sbuf[];
   const int md = m * d;
   const int* I = idx;
@@ -302,10 +468,18 @@ template <typename T, typename TO>
 cudaError_t launch_gather(const void* K, const int* idx, const float* coef, const float* Cin,
                           float a, float* C32, TO* Cout, int R, int N, int m, int d, int rows,
                           cudaStream_t stream) {
-  const size_t smem = (size_t)m * d * (sizeof(int) + sizeof(float));
-  const int staged = smem <= 48 * 1024;
+  const int md = m * d;
   const dim3 grid((R + rows - 1) / rows);
-  sketch_gather_kernel<T, TO><<<grid, dim3(32, 8), staged ? smem : 0, stream>>>(
+  if (GATHER_SORTED_MIN <= md && md <= GATHER_SORTED_MAX) {
+    const size_t smem = (size_t)pow2_at_least(md) * sizeof(unsigned long long) +
+                        (size_t)md * sizeof(float) * (1 + gather_tile_rows(md, rows));
+    sketch_gather_kernel<T, TO><<<grid, dim3(32, GATHER_THREADS / 32), smem, stream>>>(
+        static_cast<const T*>(K), idx, coef, Cin, a, C32, Cout, R, N, m, d, rows);
+    return cudaGetLastError();
+  }
+  const size_t smem = (size_t)md * (sizeof(int) + sizeof(float));
+  const int staged = smem <= 48 * 1024;
+  sketch_gather_rows_kernel<T, TO><<<grid, dim3(32, 8), staged ? smem : 0, stream>>>(
       static_cast<const T*>(K), idx, coef, Cin, a, C32, Cout, R, N, m, d, staged, rows);
   return cudaGetLastError();
 }
@@ -436,12 +610,12 @@ cudaError_t launch_scalar(const void* K, const int* idx, const float* coef, void
 extern "C" {
 
 int repro_matfree_apply(const void* X, const void* L, const float* coef, float* out, int n, int p,
-                        int m, int d, int jc, int kind, float bw, float gdenom, int rows,
-                        int is_bf16, void* stream) {
+                        int m, int d, int jc, int gauss, float scale, float p1, float p2,
+                        int rows, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch_matfree<__nv_bfloat16>(X, L, coef, out, n, p, m, d, jc, kind, bw,
-                                                   gdenom, rows, s)
-                 : dispatch_matfree<float>(X, L, coef, out, n, p, m, d, jc, kind, bw, gdenom,
+  return is_bf16 ? dispatch_matfree<__nv_bfloat16>(X, L, coef, out, n, p, m, d, jc, gauss, scale,
+                                                   p1, p2, rows, s)
+                 : dispatch_matfree<float>(X, L, coef, out, n, p, m, d, jc, gauss, scale, p1, p2,
                                            rows, s);
 }
 

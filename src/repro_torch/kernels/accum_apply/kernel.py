@@ -16,19 +16,22 @@ index out of range reads nothing and gives NaN in the outputs it feeds.
 
 ``bm``, where a launcher takes it, is the rows a block takes: a launch
 geometry the autotune cache chooses (``ops``), which changes neither a
-block's threads, shared memory or registers nor any sum's order.  The
-default is the static geometry, ``autotune.STATIC_TABLE``.
+block's threads or registers nor any sum's order.  The default is the
+static geometry, ``autotune.STATIC_TABLE`` (``matfree_rows(n)`` for
+``matfree_apply``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -39,9 +42,9 @@ BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel-kind codes shared with csrc (enum KernelKind)
-_KINDS = {("gaussian", None): 0, ("laplacian", None): 1, ("matern", 0.5): 2,
-          ("matern", 1.5): 3, ("matern", 2.5): 4}
+# a·bw for the kernels k = poly(a·r)·exp(−a·r) of r = ‖x − l‖
+_SCALES = {("laplacian", None): 1.0, ("matern", 0.5): 1.0,
+           ("matern", 1.5): math.sqrt(3.0), ("matern", 2.5): math.sqrt(5.0)}
 # matfree shared memory: a block's column group is sized to fit 48 KB; one
 # column's landmarks may take up to _MATFREE_SMEM (opted in above 48 KB)
 _MATFREE_GROUP = 48 * 1024
@@ -112,7 +115,7 @@ def build() -> Path:
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_matfree_apply.argtypes = [P, P, P, P, I, I, I, I, I, I, F, F, I, I, P]
+    lib.repro_matfree_apply.argtypes = [P, P, P, P, I, I, I, I, I, I, F, F, F, I, I, P]
     lib.repro_accum_apply_left.argtypes = [P, P, P, P, I, I, I, I, I, P]
     lib.repro_accum_sketch_both.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
     lib.repro_accum_apply.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
@@ -168,20 +171,63 @@ def _rows(bm: int | None, kind: str) -> int:
     return bm
 
 
-def _kernel_kind(kernel: str, nu: float) -> int:
-    """The csrc ``KernelKind`` code for a (kernel, nu) pair."""
+class MatfreeFold(NamedTuple):
+    """The constants of ``matfree_apply``'s restated kernel, in float64 (the
+    launch rounds each to float32 once).  Both points are multiplied by
+    ``scale``, so their squared distance is q = scale²·d2: the Gaussian is
+    2^(−q); the others take s = −√q and give (1 + p1·s + p2·s²)·2^s."""
+    gauss: bool
+    scale: float
+    p1: float
+    p2: float
+
+
+def matfree_fold(kernel: str, bandwidth: float = 1.0, nu: float = 1.5) -> MatfreeFold:
+    """The restated constants of a (kernel, bandwidth, nu) triple.
+
+    Gaussian: exp(−d2/(2bw²)) = 2^(−q) with scale² = log2(e)/(2bw²).  The
+    others are poly(a·r)·exp(−a·r) in r = √d2, a = (1, 1, √3, √5)/bw for
+    Laplacian and Matérn ν = 0.5, 1.5, 2.5: with scale = log2(e)·a,
+    exp(−a·r) = 2^s for s = −√q, and the prefactor 1 + a·r (+ (a·r)²/3 for
+    ν = 2.5) is 1 − ln2·s (+ (ln2·s)²/3)."""
+    if kernel == "gaussian":
+        return MatfreeFold(True, math.sqrt(math.log2(math.e) / 2.0) / float(bandwidth),
+                           0.0, 0.0)
     key = (kernel, float(nu) if kernel == "matern" else None)
-    if key not in _KINDS:
+    if key not in _SCALES:
         raise ValueError(f"unsupported kernel {kernel!r} (nu={nu})")
-    return _KINDS[key]
+    ln2 = math.log(2.0)
+    p1 = -ln2 if _SCALES[key] > 1.0 else 0.0
+    p2 = ln2 * ln2 / 3.0 if key == ("matern", 2.5) else 0.0
+    return MatfreeFold(False, math.log2(math.e) * _SCALES[key] / float(bandwidth), p1, p2)
+
+
+def matfree_rows(n: int) -> int:
+    """Rows of X a block of ``matfree_apply`` takes by default: 512, since
+    each block stores its landmarks once and more rows spread that cost
+    (64 → 512 rows: 0.357 → 0.315 ms at n = 2²¹ on an H100, PERF.md §6),
+    halved down to the static table's 64 while the grid would hold fewer
+    than 1024 blocks."""
+    rows = 512
+    while rows > autotune.STATIC_TABLE["matfree_cols"][0] and n < 1024 * rows:
+        rows //= 2
+    return rows
+
+
+def matfree_floats(p: int) -> int:
+    """Floats of shared memory a landmark takes in ``matfree_apply``: one
+    float4 record (p ≤ 3) or two (p ≤ 7) and its coefficient; for larger p,
+    p transposed weights, ‖l‖² and the coefficient (csrc
+    ``matfree_quads``)."""
+    return 5 if p <= 3 else 9 if p <= 7 else p + 2
 
 
 def matfree_apply(X: torch.Tensor, L: torch.Tensor, coef: torch.Tensor, *,
                   kernel: str, bandwidth: float = 1.0, nu: float = 1.5,
                   bm: int | None = None) -> torch.Tensor:
     """C = K(X, L)·S on the card; X (n, p) and L (m·d, p) float32 or
-    bfloat16 of one dtype, coef (m, d) float32; ``bm`` rows of X a block.
-    Returns (n, d) float32.
+    bfloat16 of one dtype, coef (m, d) float32; ``bm`` rows of X a block
+    (default ``matfree_rows(n)``).  Returns (n, d) float32.
 
     Replaces AA:474 ``matfree_apply``; landmark row i·d + j belongs to
     column j of slab i, as in ``ops.expand_coef`` of the reference."""
@@ -191,14 +237,14 @@ def matfree_apply(X: torch.Tensor, L: torch.Tensor, coef: torch.Tensor, *,
     _check("X", X, (n, p), _TYPES, dev)
     _check("L", L, (m * d, p), (X.dtype,), dev)
     _check("coef", coef, (m, d), (torch.float32,), dev)
-    kind = _kernel_kind(kernel, nu)
-    per_col = m * (p + 2) * 4
+    fold = matfree_fold(kernel, bandwidth, nu)
+    per_col = m * matfree_floats(p) * 4
     if per_col > _MATFREE_SMEM:
-        raise ValueError(f"m·(p+2)·4 = {per_col} B of landmarks per output "
-                         f"column exceeds the {_MATFREE_SMEM} B shared-memory "
-                         "budget of the matfree kernel")
+        raise ValueError(f"{per_col} B of landmarks per output column exceeds "
+                         f"the {_MATFREE_SMEM} B shared-memory budget of the "
+                         "matfree kernel")
     jc = max(1, min(d, _MATFREE_GROUP // per_col))
-    rows = _rows(bm, "matfree_cols")
+    rows = matfree_rows(n) if bm is None else _rows(bm, "matfree_cols")
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
     if n == 0 or d == 0:
         return out
@@ -206,7 +252,7 @@ def matfree_apply(X: torch.Tensor, L: torch.Tensor, coef: torch.Tensor, *,
     with torch.cuda.device(dev), autotune.launch_range(matfree_apply):
         err = _lib().repro_matfree_apply(
             X.data_ptr(), L.data_ptr(), coef.data_ptr(), out.data_ptr(), n, p,
-            m, d, jc, kind, float(bandwidth), 2.0 * float(bandwidth) ** 2, rows,
+            m, d, jc, int(fold.gauss), fold.scale, fold.p1, fold.p2, rows,
             int(X.dtype == torch.bfloat16), _stream(dev))
     autotune.count_launch(matfree_apply)
     _raise_on(err, "matfree_apply")
@@ -234,6 +280,36 @@ def accum_apply_left(M: torch.Tensor, idx: torch.Tensor,
     autotune.count_launch(accum_apply_left)
     _raise_on(err, "accum_apply_left")
     return out
+
+
+def gather_plan(idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The order in which each block of the sorted column gather (csrc
+    ``sketch_gather_kernel``, GATHER_SORTED_MIN ≤ m·d ≤ GATHER_SORTED_MAX)
+    loads a row's sampled columns: its bitonic network over the keys
+    (column as unsigned 32-bit, then slot i·d + j), padded to a power of
+    two, step for step.
+    Returns (columns as int64, slots), each (m·d,): the k-th load of a row
+    reads K[r, columns[k]] into slot slots[k].  A column at or above N (a
+    negative index reads as one above 2³¹) is not loaded; its slot gives NaN.
+    The plan depends on idx alone."""
+    md = idx.numel()
+    np2 = 1 << max(0, (md - 1).bit_length())
+    col = torch.full((np2,), 2**32, dtype=torch.int64)
+    col[:md] = idx.reshape(-1).cpu().to(torch.int64) & 0xFFFFFFFF
+    key = col * np2 + torch.arange(np2)      # (column, slot), lexicographic
+    t = torch.arange(np2)
+    k = 2
+    while k <= np2:
+        j = k >> 1
+        while j > 0:
+            lo = t[(t ^ j) > t]
+            hi = lo ^ j
+            x, y = key[lo], key[hi]
+            swap = (x > y) == ((lo & k) == 0)
+            key[lo], key[hi] = torch.where(swap, y, x), torch.where(swap, x, y)
+            j >>= 1
+        k <<= 1
+    return key[:md] // np2, key[:md] % np2
 
 
 def accum_sketch_both(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, *,

@@ -32,8 +32,10 @@ from repro_torch.kernels.accum_apply import ref
 MAX_COLS = 8192
 
 # rows a block: the candidates of the column gather and of matfree_apply
+# (whose eight warps take eight rows a step: 64 rows keep all of them busy),
+# beside each one's default
 GATHER_ROWS = (16, 64, 256)
-MATFREE_ROWS = (32, 64, 128)
+MATFREE_ROWS = (64, 256, 1024)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -100,7 +102,7 @@ def matfree_cols_kernel(Xq: torch.Tensor, landmarks: torch.Tensor,
         return K_.matfree_apply(Xc, Lc, coef32, kernel=kernel, bandwidth=bandwidth,
                                 nu=nu, bm=blocks[0])
 
-    fb = autotune.STATIC_TABLE["matfree_cols"]
+    fb = (K_.matfree_rows(nq),)
     blocks = autotune.measured_blocks(
         "matfree_cols", (nq, p, d, m, kernel), Xq.dtype, Xq.device,
         _rows_candidates(MATFREE_ROWS, nq, fb), run, fb,

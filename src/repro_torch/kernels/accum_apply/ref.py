@@ -30,6 +30,45 @@ def landmark_cols_ref(Xq: torch.Tensor, landmarks: torch.Tensor,
     return torch.einsum("nmd,md->nd", slab, coef.to(acc_t))
 
 
+def folded_value(q: torch.Tensor, fold) -> torch.Tensor:
+    """The kernel's value from the squared distance of the scaled points,
+    q = scale²·d2, in q's type (``kernel.matfree_fold``'s constants rounded
+    to it): 2^(−max(q, 0)) for the Gaussian, else (1 + p1·s + p2·s²)·2^s with
+    s = −√max(q, 0)."""
+    q = torch.clamp_min(q, 0.0)
+    if fold.gauss:
+        return torch.exp2(-q)
+    p1, p2 = (torch.tensor(v, dtype=q.dtype) for v in (fold.p1, fold.p2))
+    s = -torch.sqrt(q)
+    return (1.0 + (p1 + p2 * s) * s) * torch.exp2(s)
+
+
+def folded_cols_ref(Xq: torch.Tensor, landmarks: torch.Tensor,
+                    coef: torch.Tensor, fold) -> torch.Tensor:
+    """K(Xq, landmarks)·Cmat by the CUDA kernel's restated arithmetic, in
+    Xq's floating type: both points multiplied by ``fold.scale``
+    (``kernel.matfree_fold``, rounded to that type), each landmark stored as
+    (−2·l, ‖l‖²), the expanded distance q = Σ_k (−2·l_k)·x_k + (‖l‖² + ‖x‖²)
+    summed in the kernel's order, the value ``folded_value(q)``, contracted
+    over the m slabs in order.  Exact exp2 and square root where the kernel
+    takes the SFU's approximations, and no fused multiply-adds: it holds the
+    formula, not the bits."""
+    dt = Xq.dtype
+    m, d = coef.shape
+    scale = torch.tensor(fold.scale, dtype=dt)
+    x, lm = scale * Xq, scale * landmarks
+    w = -2.0 * lm                                               # (m·d, p)
+    q = w[None, :, 0] * x[:, 0, None]
+    for k in range(1, x.shape[1]):
+        q = q + w[None, :, k] * x[:, k, None]
+    q = q + ((lm * lm).sum(-1)[None, :] + (x * x).sum(-1)[:, None])
+    val = folded_value(q, fold).reshape(Xq.shape[0], m, d)
+    out = torch.zeros((Xq.shape[0], d), dtype=dt, device=Xq.device)
+    for i in range(m):
+        out = out + coef[i].to(dt) * val[:, i]
+    return out
+
+
 def matfree_cols_ref(X: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor,
                      kernel_fn) -> torch.Tensor:
     """Oracle for the matrix-free kernel: C = K(X, X)·S from the data rows,

@@ -72,6 +72,78 @@ def test_cuda_kernels_match_plain(cuda_device, n, p, d, m, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [1, 3, 4, 7])
+def test_cuda_matfree_at_m16_every_record_layout(cuda_device, p, dtype):
+    """matfree_apply at the engine's m = 16, d = 64, for one float4 record a
+    landmark (p ≤ 3) and two (p ≤ 7), on n = 1237 rows (a multiple of no
+    candidate's rows a block): every kernel kind against its plain version,
+    and every rows-a-block candidate the static geometry's bits."""
+    g = torch.Generator().manual_seed(p)
+    n, d, m = 1237, 64, 16
+    X = torch.rand((n, p), generator=g).to(cuda_device, dtype)
+    sk = make_accum_sketch(g, n, d, m, device=cuda_device)
+    L = X.index_select(0, sk.indices.reshape(-1))
+    for kernel, bw, nu in KERNELS:
+        out = KT.matfree_apply(X, L, sk.coef, kernel=kernel, bandwidth=bw, nu=nu)
+        if (kernel, nu if kernel == "matern" else 1.5) in CUSP:
+            plain = RT.landmark_cols_ref(X.double(), L.double(), sk.coef.double(),
+                                         get_kernel(kernel, bw, nu))
+            _close(out, plain, 5e-3)
+        else:
+            plain = RT.landmark_cols_ref(X.float(), L.float(), sk.coef,
+                                         get_kernel(kernel, bw, nu))
+            _close(out, plain, 1e-5 if dtype == torch.float32 else 5e-2)
+    _candidates_equal_static(
+        lambda c: (KT.matfree_apply(X, L, sk.coef, kernel="gaussian", bandwidth=0.5,
+                                    bm=c[0]),),
+        OT._rows_candidates(OT.MATFREE_ROWS, n, (64,)) + [(1,), (100,)], (64,))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 16, 17])
+def test_cuda_gather_edges(cuda_device, B, dtype):
+    """The column gather on a ragged R = N = 3001 at d = 64: B = 1 and 16
+    take the sorted kernel, B = 17 (m·d above 1024) the row-at-a-time one.
+    An index ≥ N and a negative one make NaN in their columns and nowhere
+    else; the rest holds the plain version; accum_grow_slabs written over
+    its own Cin gives the bits of a separate output; every rows-a-block
+    candidate gives the static geometry's bits."""
+    g = torch.Generator().manual_seed(B)
+    R = N = 3001
+    d = 64
+    K = torch.randn((R, N), generator=g).to(cuda_device, dtype)
+    idx = torch.randint(0, N, (B, d), generator=g, dtype=torch.int32)
+    coef = torch.randn((B, d), generator=g)
+    Cin = torch.randn((R, d), generator=g).to(cuda_device)
+    bad = {3: N, 40: -7}
+    good = idx.clone()
+    for j, v in bad.items():
+        idx[B - 1, j] = v
+    idx, good, coef = idx.to(cuda_device), good.to(cuda_device), coef.to(cuda_device)
+    cols = [j for j in range(d) if j not in bad]
+    f32 = dtype == torch.float32
+    out = KT.accum_apply(K, idx, coef)
+    assert bool(out[:, list(bad)].float().isnan().all())
+    assert not bool(out[:, cols].float().isnan().any())
+    _close(out[:, cols], RT.accum_apply_ref(K, good, coef)[:, cols], 1e-5 if f32 else 2e-2)
+    C_new, TtG, TtC = KT.accum_grow_slabs(K, good, coef, Cin, 0.6)
+    for x, y in zip((C_new, TtG, TtC), RT.accum_grow_ref(K, good, coef, Cin, 0.6)):
+        _close(x, y, 1e-4)
+    C2 = Cin.clone()
+    again = KT.accum_grow_slabs(K, good, coef, C2, 0.6, out=C2)
+    assert again[0].data_ptr() == C2.data_ptr()
+    assert all(torch.equal(x, y) for x, y in zip(again, (C_new, TtG, TtC)))
+    _candidates_equal_static(lambda c: KT.accum_grow_slabs(K, good, coef, Cin, 0.6, bm=c[0]),
+                             OT._gemm_candidates(R, (64,)) + [(1,), (100,)], (64,))
+    _candidates_equal_static(lambda c: (KT.accum_apply(K, good, coef, bm=c[0]),),
+                             OT._gemm_candidates(R, (64,)) + [(1,)], (64,))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_wrappers_route_cuda_tensors_to_the_kernels(cuda_device):
     g = torch.Generator().manual_seed(0)
     X = torch.rand((500, 3), generator=g).to(cuda_device)
