@@ -64,10 +64,25 @@
    plain version; and a corrupt cache file, which falls back to the static
    geometry with a health record.  The autotune caches live in a temporary
    directory, so every run starts cold.
+   Then path (n), the data mesh (``repro_torch.core.distributed``), once,
+   on pass 2's cache, its launch counts from 0:
+   (n1) one NCCL rank in this process, under the profiler as pass 3: (b)'s
+        sharded (C, W), the three fits and predict, (h)'s adaptive fit, (i)'s
+        blobs clustered through a KernelOperator, and the Hutchinson
+        estimator at n = 8192, each beside the single-device call on the
+        same draw (wall times side by side);
+   (n2) two gloo ranks sharing the card (NCCL refuses two ranks on one
+        device), ``chip_smoke.py --mesh-rank RANK 2 STORE OUT`` started
+        together with ``REPRO_AUTOTUNE=0`` and a time limit, at n = 2²¹ − 1
+        (ragged shards): C rows bitwise, draws and θ bitwise across the
+        ranks, the float64 fit to 1e-5, the doubling growth's m and passes.
+   Float32 θ is held through its residual in the single-device system and
+   its fitted values at ``F32_FIT_TOL`` (see there).
 4. Prints one ``{"kernels": [...]}`` line (with each kernel's device ms
-   summed on the paths of pass 3 and (m)), the card line, and as the last
-   line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
-   before the last line is printed.  Without a CUDA device it exits 2.
+   summed on the paths of pass 3, (m) and (n1)), the card line, and as the
+   last line ``{"ok": true, "device": {...}}``.  Any failed check exits
+   non-zero before the last line is printed.  Without a CUDA device it
+   exits 2.
 
 Comparisons use allclose with rtol = tol and atol = tol · max|plain|: the
 main path's outputs are of order 10²–10⁵ (coefficients r/sqrt(d·m·p) ≈ 90 at
@@ -120,6 +135,18 @@ PROFILED = 4       # decode steps profiled after each serving run of (j)
 S_ATT, H_ATT = 32768, 32
 # path (m): the K·S microbenchmark's anchor (benchmarks/kernel_bench.py:41)
 R_ANCHOR, N_ANCHOR = 4096, 8192
+# path (n), the data mesh: the two-rank run's n (shards of 2^20 and 2^20 − 1
+# rows), the Hutchinson estimator's n (its K Z is O(n²)), the ranks' limit
+N_MESH2, N_HUTCH, MESH_TIMEOUT = 2**21 - 1, 8192, 120
+# float32 fitted values of a sharded fit against the single-device one at
+# λ = 1e-3: CᵀC summed in another order moves θ along the Woodbury system's
+# ill-conditioned directions (the reference's own sharded float32 fit of this
+# configuration differs from its single-device fit by 1.5e-3–3.6e-3 in the
+# fitted values and 71–120% in θ at n = 4095 and 32767 on the CPU,
+# scripts/reference_mesh_spread.py).  θ is held
+# through its residual in the single-device system, and the fitted values at
+# 1e-5 in float64
+F32_FIT_TOL = 1e-2
 
 SRC = "src/repro_torch/kernels/accum_apply/csrc/accum_apply.cu"
 LSRC = "src/repro_torch/kernels/landmark_attention/csrc/landmark_attention.cu"
@@ -440,6 +467,126 @@ def pairwise_agreement(torch, truth, labels) -> float:
     return float((n * n - t - l_ + 2 * s11) / (n * n))
 
 
+def make_regression(torch, dev, n: int, seed: int):
+    """(generator, X (n, 3), f, y): the regression data of the KRR paths,
+    drawn on ``dev`` from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.rand((n, 3), generator=g, device=dev)
+    f = torch.sin(3 * X[:, 0]) + X[:, 1] ** 2 - X[:, 2]
+    y = f + 0.3 * torch.randn((n,), generator=g, device=dev)
+    return g, X, f, y
+
+
+def residual(C, W, y, theta, lam: float) -> float:
+    """‖Mθ − Cᵀy‖/‖Cᵀy‖ in float64 for the Woodbury system M = CᵀC + nλW of
+    the full C: how well θ solves that d×d system."""
+    C, W, y, theta = (t.double() for t in (C, W, y, theta))
+    rhs = C.T @ y
+    return (((C.T @ C + y.shape[0] * lam * W) @ theta - rhs).norm() / rhs.norm()).item()
+
+
+def digest(t) -> str:
+    """A hash of a tensor's bytes, to compare results across processes."""
+    import hashlib
+
+    return hashlib.sha1(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def collective_ms(torch, D, mesh, shape) -> tuple[float, float]:
+    """(ms of the mesh's first ``all_reduce``, which sets its communicator
+    up; median ms of 20 more), of a float32 tensor of ``shape`` on the
+    mesh's device, host clock between synchronizations."""
+    t = torch.zeros(shape, device=mesh.device)
+    _, first = wall(torch, lambda: D.all_reduce(t, mesh))
+    return first * 1e3, statistics.median(
+        wall(torch, lambda: D.all_reduce(t, mesh))[1] for _ in range(20)) * 1e3
+
+
+def mesh_rank(rank: int, size: int, store: str, out: str) -> int:
+    """One rank of path (n2): ``chip_smoke.py --mesh-rank RANK SIZE STORE
+    OUT``.  Joins a gloo group of ``size`` ranks on the FileStore ``store``,
+    all on the card, runs (b)'s fit, predict and (h)'s doubling growth at
+    n = N_MESH2 (ragged shards) on one device (untimed, to set the process's
+    libraries up), on the mesh, and on one device again, on the same draws,
+    compares its own rows, and writes what it found to ``out`` (JSON)."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import apply as A
+    from repro_torch.core import distributed as D
+    from repro_torch.core import KernelOperator, krr_sketched_fit, make_accum_sketch
+    from repro_torch.kernels.accum_apply import kernel as KN
+
+    dev = torch.device(DEVICE)
+    dist.init_process_group("gloo", store=dist.FileStore(store, size), rank=rank,
+                            world_size=size, timeout=timedelta(seconds=60))
+    try:
+        mesh = D.make_data_mesh(size, device=dev)
+        n, d, m, lam, bw = N_MESH2, 64, 4, 1e-3, 0.5
+        all_reduce_ms = collective_ms(torch, D, mesh, (m * d, d))
+        lo, hi = mesh.rows(n)
+        g, X, f, y = make_regression(torch, dev, n, 2)
+        sk = make_accum_sketch(g, n, d, m, device=dev)
+        op = KernelOperator(X, "gaussian", bw)
+        Xt = torch.rand((N_TEST, 3), generator=torch.Generator(device=dev).manual_seed(4),
+                        device=dev)
+
+        def run(on):
+            """(C, W), the fit, its predictions and the doubling growth, each
+            with its host-clock seconds, on the mesh ``on`` (None: one
+            device)."""
+            both, t_both = wall(torch, lambda: A.sketch_both(op, sk, mesh=on))
+            model, t_fit = wall(torch, lambda: krr_sketched_fit(op, y, lam, sk, mesh=on))
+            pred, t_pred = wall(torch, lambda: model.predict(Xt, mesh=on))
+            grown, t_grow = wall(torch, lambda: A.grow_sketch_both(
+                SEED, op, d, m_max=16, tol=TOL_H, mesh=on))
+            return both, model, pred, grown, (t_both, t_fit, t_pred, t_grow)
+
+        # the single-device path on the same draws first, untimed: the process's
+        # first calls set up its libraries (cuBLAS, cuSOLVER, the kernels' module)
+        run(None)
+        for f_ in KN.KERNELS:
+            f_.launches = 0
+        (C, W), model, pred, (skg, _, _, info), ts = run(mesh)
+        launches = {f_.__name__: f_.launches for f_ in KN.KERNELS}
+        (C1, W1), model1, pred1, (skg1, _, _, info1), ts1 = run(None)
+        # float64 (the plain route: the kernel takes float32 and bfloat16)
+        op64, y64 = KernelOperator(X.double(), "gaussian", bw), y.double()
+        fit64 = krr_sketched_fit(op64, y64, lam, sk, use_kernel=False, mesh=mesh).fitted
+        fit64_1 = krr_sketched_fit(op64, y64, lam, sk, use_kernel=False).fitted
+        tlo, thi = mesh.rows(N_TEST)
+
+        def sums(a, b):
+            a, b = a.double(), b.double()
+            return [((a - b) ** 2).sum().item(), (b ** 2).sum().item()]
+
+        res = dict(
+            rank=rank, rows=[lo, hi], launches=launches, all_reduce_ms=all_reduce_ms,
+            C_rows_bitwise=torch.equal(C, C1[lo:hi]), W_bitwise=torch.equal(W, W1),
+            W_rel=((W - W1).norm() / W1.norm()).item(),
+            fitted=sums(model.fitted, model1.fitted[lo:hi]),
+            fitted64=sums(fit64, fit64_1[lo:hi]),
+            pred=sums(pred, pred1[tlo:thi]),
+            theta_rel=((model.theta - model1.theta).norm() / model1.theta.norm()).item(),
+            theta_residual=residual(C1, W1, y, model.theta, lam),
+            theta_residual_single=residual(C1, W1, y, model1.theta, lam),
+            theta=digest(model.theta),
+            draws=[digest(sk.indices), digest(sk.signs), digest(skg.indices),
+                   digest(skg.signs)],
+            grow_draws_single=torch.equal(skg.indices, skg1.indices)
+            and torch.equal(skg.signs, skg1.signs),
+            grow=[info["m"], info["passes"]], grow_single=[info1["m"], info1["passes"]],
+            ms={k: [a * 1e3, b * 1e3] for k, a, b in
+                zip(("sketch_both", "fit", "predict", "doubling"), ts, ts1)})
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+    return 0
+
+
 def main() -> int:
     """Run the checks and the main path; return the exit code."""
     import torch
@@ -500,11 +647,7 @@ def main() -> int:
     gauss = get_kernel("gaussian", bw)
 
     def regression(n, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        X = torch.rand((n, 3), generator=g, device=dev)
-        f = torch.sin(3 * X[:, 0]) + X[:, 1] ** 2 - X[:, 2]
-        y = f + 0.3 * torch.randn((n,), generator=g, device=dev)
-        return g, X, f, y
+        return make_regression(torch, dev, n, seed)
 
     # ---- 2. kernels against their plain versions -------------------------- #
     print("\n== kernels vs plain (on the card) ==")
@@ -1559,9 +1702,196 @@ def main() -> int:
     check(rec == 1 and ok, f"a corrupt cache file: K·S still right (max abs {ea:.3e}) at "
                            f"the static geometry; health {global_health().summary()}")
     del Ka, Kd, out
+    torch.cuda.empty_cache()
 
-    # device ms on the paths: pass 3's KRR, engine and serving paths summed
-    # by wrapper under the profiler, and path (m)'s calls timed one by one
+    # ---- 7. path (n): the data mesh ------------------------------------------ #
+    # (n1) one NCCL rank in this process, on pass 2's cache and under the
+    # profiler as pass 3 (PathTrace); each sharded call beside the
+    # single-device one on the same draw, which runs first (off path), so
+    # that a key the cache has not seen is measured there
+    print(f"\n== path (n): the data mesh; card: {smi} ==")
+    os.environ[AT.ENV_GATE] = "1"
+    os.environ[AT.ENV_CACHE] = str(tmp / "pass2.json")
+    from repro_torch._util import HOLDOUT_STREAM
+    from repro_torch.core import distributed as DM
+
+    reset_counts()
+    trace.on = True
+    trace.begin("mesh")
+    t_mesh = time.perf_counter()
+    mesh = DM.make_data_mesh(device=dev)
+    first, steady = collective_ms(torch, DM, mesh, (m * d, d))
+    print(f"  (n1) {mesh.size} rank, backend {torch.distributed.get_backend()}, "
+          f"rows of n={nb}: {mesh.rows(nb)}; all_reduce of {m * d}×{d} float32: the "
+          f"first (the communicator's set-up) {first:.1f} ms, then {steady:.3f} ms (median "
+          f"of 20)")
+
+    def pair(name, sharded, single):
+        """(sharded result, single-device result), each timed on the host
+        clock between synchronizations, printed side by side."""
+        with off_path():
+            one, t1 = wall(torch, single)
+        sh, ts = wall(torch, sharded)
+        print(f"  (n1) {name}: sharded {ts * 1e3:.1f} ms, single device {t1 * 1e3:.1f} ms")
+        return sh, one
+
+    def rel(x, y):
+        return ((x.double() - y.double()).norm() / y.double().norm()).item()
+
+    gb, Xb, fb, yb = regression(nb, 2)
+    skb = make_accum_sketch(gb, nb, d, m, device=dev)
+    opb = KernelOperator(Xb, "gaussian", bw)
+    (Cs, Ws), (C1, W1) = pair(f"sketch_both n={nb} d={d} m={m}",
+                              lambda: A.sketch_both(opb, skb, mesh=mesh),
+                              lambda: A.sketch_both(opb, skb))
+    check(torch.equal(Cs, C1) and torch.equal(Ws, W1),
+          "(n1) the mesh's C and W bitwise the single-device ones")
+    del Cs
+    for name, fit in (("krr_sketched_fit", krr_sketched_fit),
+                      ("krr_sketched_fit_matfree", krr_sketched_fit_matfree),
+                      ("krr_sketched_fit_pcg", krr_sketched_fit_pcg)):
+        sh, one = pair(name, lambda: fit(opb, yb, lam, skb, mesh=mesh),
+                       lambda: fit(opb, yb, lam, skb))
+        Wsym = W1 if fit is krr_sketched_fit else 0.5 * (W1 + W1.T)
+        res, res1 = (residual(C1, Wsym, yb, t, lam) for t in (sh.theta, one.theta))
+        rf = rel(sh.fitted, one.fitted)
+        print(f"  (n1) {name}: fitted rel {rf:.3e}, θ rel {rel(sh.theta, one.theta):.3e}, "
+              f"θ's residual in the single-device system {res:.3e} (single θ {res1:.3e})")
+        check(bool(sh.fitted.isfinite().all()) and rf <= F32_FIT_TOL
+              and res <= max(1e-5, 2 * res1),
+              f"(n1) {name}: θ's residual {res:.3e} (tol the larger of 1e-5 and twice the "
+              f"single θ's); fitted rel {rf:.3e} (tol {F32_FIT_TOL}, float32)")
+        if fit is krr_sketched_fit:
+            model_s, model_1 = sh, one
+    Xt = torch.rand((N_TEST, 3), generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev)
+    ps, p1 = pair(f"predict {N_TEST} rows", lambda: model_s.predict(Xt, mesh=mesh),
+                  lambda: model_1.predict(Xt))
+    check(tuple(ps.shape) == (N_TEST,) and rel(ps, p1) <= F32_FIT_TOL,
+          f"(n1) predict: rel {rel(ps, p1):.3e} (tol {F32_FIT_TOL}, float32)")
+    del C1, W1, model_s, model_1, ps, p1
+    # (h)'s adaptive operator fit to m_max 16
+    sh, one = pair("krr_sketched_fit_adaptive (h)",
+                   lambda: krr_sketched_fit_adaptive(opb, yb, lam, SEED, d, tol=TOL_H,
+                                                     m_max=16, mesh=mesh),
+                   lambda: krr_sketched_fit_adaptive(opb, yb, lam, SEED, d, tol=TOL_H,
+                                                     m_max=16))
+    same = [sh.info[k] for k in ("m", "passes")] == [one.info[k] for k in ("m", "passes")]
+    check(same and torch.equal(sh.sk.indices, one.sk.indices)
+          and rel(sh.fitted, one.fitted) <= F32_FIT_TOL,
+          f"(n1) adaptive fit: m={sh.info['m']} in {sh.info['passes']} passes (single "
+          f"device m={one.info['m']} in {one.info['passes']}), the same draws, fitted rel "
+          f"{rel(sh.fitted, one.fitted):.3e} (tol {F32_FIT_TOL}, float32)")
+    del sh, one, opb, Xb, yb, fb
+    # (i)'s blobs through a KernelOperator at n = 32768
+    gi = torch.Generator(device=dev).manual_seed(6)
+    truth = torch.arange(nc, device=dev) % 4
+    Xi = 0.5 * torch.randn((nc, 32), generator=gi, device=dev)
+    Xi[torch.arange(nc, device=dev), truth] += 4.0
+    opi = KernelOperator(Xi, "gaussian", 4.0)
+    rs, r1 = pair(f"spectral_cluster n={nc} on the operator",
+                  lambda: spectral_cluster(SEED, opi, 4, d=32, m=8, mesh=mesh),
+                  lambda: spectral_cluster(SEED, opi, 4, d=32, m=8))
+    check(torch.equal(rs.labels, r1.labels),
+          f"(n1) spectral labels equal to the single device's; agreement with the "
+          f"planted labels {pairwise_agreement(torch, truth, rs.labels):.4f}")
+    del opi, Xi, rs, r1
+    # the Hutchinson estimator at N_HUTCH (sharded_matvec is O(n²))
+    _, X8, _, _ = regression(N_HUTCH, 5)
+    op8 = KernelOperator(X8, "gaussian", bw)
+    with off_path():
+        st8 = A.accum_grow(op8, A.accum_init(stream_generator(SEED), N_HUTCH, d, 4,
+                                             device=dev), 4)
+    es, e1 = pair(f"Hutchinson estimator n={N_HUTCH}",
+                  lambda: A.make_hutchinson_estimator(stream_generator(SEED, HOLDOUT_STREAM),
+                                                      op8, mesh=mesh)(st8),
+                  lambda: A.make_hutchinson_estimator(stream_generator(SEED, HOLDOUT_STREAM),
+                                                      op8)(st8))
+    check(math.isclose(es, e1, rel_tol=1e-4, abs_tol=1e-6),
+          f"(n1) Hutchinson estimate {es:.6f} against {e1:.6f} (rtol 1e-4)")
+    trace.end()
+    trace.on = False
+    launches["mesh"] = counts()
+    mesh.close()
+    print(f"  (n1) {time.perf_counter() - t_mesh:.1f} s under the profiler")
+    del op8, X8, st8
+    torch.cuda.empty_cache()
+
+    # (n2) two gloo ranks sharing the card (NCCL refuses two ranks on one
+    # device), with the static geometry: two ranks measuring at once would
+    # time each other
+    store = tmp / "mesh_store"
+    env = dict(os.environ, REPRO_AUTOTUNE="0")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+                               str(r), "2", str(store), str(tmp / f"mesh_rank{r}.json")],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=max(1.0, MESH_TIMEOUT - (time.perf_counter()
+                                                                        - t0)))[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            logs.append(p.communicate()[0])
+    t2 = time.perf_counter() - t0
+    ok2 = all(p.returncode == 0 for p in procs)
+    check(ok2, f"(n2) both ranks ran to their end in {t2:.1f} s (limit {MESH_TIMEOUT} s): "
+               f"exit codes {[p.returncode for p in procs]}")
+    if not ok2:
+        for r, log in enumerate(logs):
+            print(f"  (n2) rank {r} output:\n{log[-3000:]}")
+    else:
+        reps = [json.loads((tmp / f"mesh_rank{r}.json").read_text()) for r in range(2)]
+        for r in reps:
+            print(f"  (n2) rank {r['rank']} rows {r['rows']}: ms (sharded, single device) "
+                  f"{ {k: [round(x, 1) for x in v] for k, v in r['ms'].items()} }; gloo "
+                  f"all_reduce of {m * d}×{d} float32 on the card: the first "
+                  f"{r['all_reduce_ms'][0]:.1f} ms, then {r['all_reduce_ms'][1]:.3f} ms; "
+                  f"card: {smi}")
+
+        def grel(key):
+            return math.sqrt(sum(r[key][0] for r in reps) / sum(r[key][1] for r in reps))
+
+        check(all(r["C_rows_bitwise"] for r in reps),
+              "(n2) each rank's C rows bitwise the single-device rows")
+        check(max(r["W_rel"] for r in reps) <= 1e-5 and grel("fitted64") <= 1e-5,
+              f"(n2) W rel {max(r['W_rel'] for r in reps):.3e} (bitwise "
+              f"{[r['W_bitwise'] for r in reps]}); float64 fit: fitted rel "
+              f"{grel('fitted64'):.3e} (tol 1e-5)")
+        check(grel("fitted") <= F32_FIT_TOL and grel("pred") <= F32_FIT_TOL,
+              f"(n2) float32 fit: fitted rel {grel('fitted'):.3e}, predictions rel "
+              f"{grel('pred'):.3e} (tol {F32_FIT_TOL})")
+        check(all(r["theta_residual"] <= max(1e-5, 2 * r["theta_residual_single"])
+                  for r in reps),
+              f"(n2) θ rel {reps[0]['theta_rel']:.3e}; its residual in the single-device "
+              f"system {[round(r['theta_residual'], 9) for r in reps]} (single θ "
+              f"{reps[0]['theta_residual_single']:.3e})")
+        check(reps[0]["draws"] == reps[1]["draws"] and all(r["grow_draws_single"] for r in reps),
+              "(n2) the draws bitwise the same on both ranks and as on one device")
+        check(reps[0]["theta"] == reps[1]["theta"], "(n2) θ bitwise equal on both ranks")
+        check(all(r["grow"] == r["grow_single"] for r in reps),
+              f"(n2) doubling growth to m_max 16: m, passes {reps[0]['grow']} on the mesh, "
+              f"{reps[0]['grow_single']} on one device")
+        launches["mesh2"] = {f.__name__: sum(r["launches"].get(f.__name__, 0) for r in reps)
+                             for f in ALL}
+    print(f"  (n) launches: one rank {dict((k, v) for k, v in launches['mesh'].items() if v)}; "
+          f"two ranks {dict((k, v) for k, v in launches.get('mesh2', {}).items() if v)}; "
+          f"(n2) {t2:.1f} s in all")
+    ranges = {k: v[1] for k, v in trace.by_wrapper["mesh"].items()}
+    want = {k: v for k, v in launches["mesh"].items() if v}
+    check(set(ranges) == set(want) and all(0.99 * c <= ranges[k] <= c for k, c in want.items()),
+          f"path (n): the launches' ranges on the device {ranges} (launches {want})")
+    print(f"  (n1) device ms by wrapper: "
+          f"{ {k: round(v[0], 4) for k, v in trace.by_wrapper['mesh'].items()} }")
+    check(launches["mesh"]["matfree_apply"] > 0 and launches.get("mesh2", {}).get(
+        "matfree_apply", 0) > 0, "matfree_apply launched on path (n), one rank and two")
+
+    # device ms on the paths: pass 3's KRR, engine and serving paths and
+    # (n1) summed by wrapper under the profiler, and path (m)'s calls timed
+    # one by one ((n2)'s ranks are not profiled)
     def on_paths(name):
         return {p: round(w[name][0], 6) for p, w in trace.by_wrapper.items() if name in w}
 
@@ -1574,8 +1904,8 @@ def main() -> int:
               f"bound {row['bound_ms']:.5f} ms by {row['bound_by']}{sector}, library "
               f"{row['library_ms']}); geometry {row.get('geometry')} by "
               f"{row['geometry_by']}")
-    # launches: the sum over the main paths of pass 2 and path (m), each
-    # counted from 0
+    # launches: the sum over the main paths of pass 2, path (m) and path (n)
+    # (both parts), each counted from 0
     kernels = [dict(name=f.__name__, route="cuda", source=SRC if f in KN.KERNELS else LSRC,
                     launches=sum(c[f.__name__] for c in launches.values()),
                     launches_by_path={p: c[f.__name__] for p, c in launches.items()},
@@ -1598,4 +1928,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

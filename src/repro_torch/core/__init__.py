@@ -1,6 +1,7 @@
 """Core library: the paper's accumulation-of-sub-sampling sketching framework
 (the ported slices: sketches and schemes, structural and matrix-free
-applies, the progressive engine, KRR and spectral clustering)."""
+applies, the progressive engine, the data mesh, KRR, spectral clustering,
+approximate matrix multiplication and the K-satisfiability check)."""
 from repro_torch.core.sketch import (
     AccumSketch,
     AccumState,
@@ -30,6 +31,19 @@ from repro_torch.core.apply import (
     unsketch_vec,
 )
 from repro_torch.core.kernel_op import KernelOperator, stream_cols, stream_cols_slabs
+from repro_torch.core.distributed import (
+    DataMesh,
+    gather_rows,
+    make_data_mesh,
+    resolve_mesh,
+    shard_rows,
+    sharded_gram,
+    sharded_matvec,
+    sharded_sketch_both,
+    sharded_sketch_left,
+    sharded_take_rows,
+    sharded_weighted_cols,
+)
 from repro_torch.core.krr import (
     SketchedKRR,
     insample_error,
@@ -50,6 +64,8 @@ from repro_torch.core.spectral import (
     sketched_spectral_embedding,
     spectral_cluster,
 )
+from repro_torch.core.ksat import KSatResult, ksat_check
+from repro_torch.core.amm import amm, amm_error
 from repro_torch.core.kernels_math import (
     gaussian_kernel,
     get_kernel,

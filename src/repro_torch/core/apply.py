@@ -72,9 +72,13 @@ def sketch_right(K: torch.Tensor, sk: AccumSketch) -> torch.Tensor:
 
 def sketch_left(sk: AccumSketch, M: torch.Tensor) -> torch.Tensor:
     """Sᵀ M for M of shape (n, c) → (d, c).  O(m·d·c)."""
-    dt = _common(M, sk.coef)
-    rows = M.index_select(0, sk.indices.reshape(-1))             # (m·d, c)
-    rows = rows.reshape(sk.m, sk.d, M.shape[-1])
+    return left_from_rows(sk, M.index_select(0, sk.indices.reshape(-1)))
+
+
+def left_from_rows(sk: AccumSketch, rows: torch.Tensor) -> torch.Tensor:
+    """Sᵀ M from the gathered landmark rows M[sk.indices] (m·d, c)."""
+    dt = _common(rows, sk.coef)
+    rows = rows.reshape(sk.m, sk.d, rows.shape[-1])
     return torch.einsum("mdc,md->dc", rows.to(dt), sk.coef.to(dt))
 
 
@@ -98,14 +102,21 @@ def unsketch_mat(sk: AccumSketch, W: torch.Tensor) -> torch.Tensor:
                           contrib.reshape(-1, W.shape[-1]))
 
 
-def sketch_both(K, sk: AccumSketch, *, use_kernel: bool | None = None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+def sketch_both(K, sk: AccumSketch, *, use_kernel: bool | None = None,
+                mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(K S, Sᵀ K S) sharing the K S intermediate, as in the paper.
 
     ``K`` is a dense (n, n) tensor or a matrix-free ``KernelOperator``.
     ``use_kernel`` (default: whether K is on a CUDA device) computes the
     dense pair with the ``accum_sketch_both`` kernel; W then stays float32.
-    An operator routes C through the matrix-free kernel instead."""
+    An operator routes C through the matrix-free kernel instead.  ``mesh``
+    (operator only) computes this rank's rows of C and the replicated W
+    (``core.distributed``)."""
+    if mesh is not None:
+        from repro_torch.core import distributed as D
+
+        op, mesh = D.operator_mesh(K, mesh)
+        return D.sharded_sketch_both(op, sk, mesh, use_kernel=use_kernel)
     op = _operator(K)
     if op is not None:
         return op.sketch_both(sk, use_kernel=use_kernel)
@@ -216,9 +227,13 @@ def block_left(idx_blk: torch.Tensor, coef_blk: torch.Tensor,
                M: torch.Tensor) -> torch.Tensor:
     """Tᵀ M (d, c) for the batch block T described by idx/coef (B, d): a
     B·d-row gather of M contracted with the coefficients, in float32."""
-    B, d = idx_blk.shape
-    rows = M.index_select(0, idx_blk.reshape(-1)).reshape(B, d, M.shape[-1])
-    return torch.einsum("bdc,bd->dc", rows.float(), coef_blk)
+    return block_from_rows(coef_blk, M.index_select(0, idx_blk.reshape(-1)))
+
+
+def block_from_rows(coef_blk: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Tᵀ M from the gathered rows M[idx_blk] (B·d, c)."""
+    B, d = coef_blk.shape
+    return torch.einsum("bdc,bd->dc", rows.reshape(B, d, -1).float(), coef_blk)
 
 
 def batch_w_update(state: AccumState, TtC: torch.Tensor, TtG: torch.Tensor,
@@ -237,15 +252,20 @@ def finish_grow(state: AccumState, m_max: int, passes: int | None = None):
     return state.sketch(), state.C, state.W, info
 
 
-def accum_step(K, state: AccumState, *,
-               use_kernel: bool | None = None) -> AccumState:
+def accum_step(K, state: AccumState, *, use_kernel: bool | None = None,
+               mesh=None) -> AccumState:
     """Fold ONE new sub-sampling matrix into (C, W): O(n·d).
 
     ``K`` is a dense tensor or a ``KernelOperator`` (whose slab columns come
     from kernel evaluations).  ``use_kernel`` (default: whether K is on a
     CUDA device) takes the C update through ``sketch_step_kernel`` on a dense
     K, or the matrix-free kernel on an operator; the W pieces are d×d
-    gathers either way."""
+    gathers either way.  ``mesh`` (operator only) computes the slab on this
+    rank's rows of C and sums the T̃ᵀC gather over the ranks."""
+    if mesh is not None:
+        from repro_torch.core import distributed as D
+
+        return D.sharded_accum_step(K, state, mesh, use_kernel=use_kernel)
     op = _operator(K)
     if use_kernel is None:
         use_kernel = default_use_kernel(_device(K))
@@ -274,16 +294,17 @@ def accum_step(K, state: AccumState, *,
 
 
 def accum_grow(K, state: AccumState, steps: int, *,
-               use_kernel: bool | None = None) -> AccumState:
-    """Fold in ``steps`` more slabs, one ``accum_step`` each."""
+               use_kernel: bool | None = None, mesh=None) -> AccumState:
+    """Fold in ``steps`` more slabs, one ``accum_step`` each (on ``mesh``:
+    sharded steps)."""
     for _ in range(steps):
-        state = accum_step(K, state, use_kernel=use_kernel)
+        state = accum_step(K, state, use_kernel=use_kernel, mesh=mesh)
     return state
 
 
 def accum_grow_batched(K, state: AccumState, B: int, *,
                        use_kernel: bool | None = None,
-                       donate: bool = False) -> AccumState:
+                       donate: bool = False, mesh=None) -> AccumState:
     """Fold the next ``B`` pre-drawn slabs into (C, W) in ONE pass over the
     data: one column-block application G = K·T (a single
     ``accum_grow_slabs`` launch, kernel-evaluation sweep or gather), the
@@ -292,12 +313,18 @@ def accum_grow_batched(K, state: AccumState, B: int, *,
 
     ``donate=True`` lets the dense kernel route write the new C over the
     state's C (the reference donates the state's buffers); the caller's
-    state must not be used afterwards.  Requires 1 ≤ B and m + B ≤ m_max."""
+    state must not be used afterwards.  ``mesh`` (operator only) sweeps this
+    rank's rows and sums the W pieces' gathers over the ranks.  Requires
+    1 ≤ B and m + B ≤ m_max."""
     if not 1 <= B <= state.m_max:
         raise ValueError(f"batch size B={B} outside [1, m_max={state.m_max}]")
     if state.m + B > state.m_max:
         raise ValueError(f"batch of {B} slabs from m={state.m} overruns the "
                          f"pre-drawn m_max={state.m_max}")
+    if mesh is not None:
+        from repro_torch.core import distributed as D
+
+        return D.sharded_accum_grow_batched(K, state, B, mesh, use_kernel=use_kernel)
     op = _operator(K)
     if use_kernel is None:
         use_kernel = default_use_kernel(_device(K))
@@ -361,15 +388,48 @@ def _rows_without_replacement(generator: torch.Generator, n: int,
     return torch.tensor(list(rows), dtype=torch.long)
 
 
+def holdout_rule(Kh: torch.Tensor, take, jitter: float):
+    """The holdout estimate ‖K_h − C_h W⁺ C_hᵀ‖/‖K_h‖ on the (h, h) block
+    ``Kh``, with ``take(C)`` gathering the holdout rows C_h of a state's C."""
+    denom = torch.clamp_min(torch.linalg.norm(Kh), 1e-30)
+
+    def estimate(state: AccumState) -> float:
+        Ch = take(state.C)
+        Khat = Ch @ _psd_apply_pinv(state.W, Ch.T, jitter)
+        return _estimate(torch.linalg.norm(Kh - Khat) / denom)
+
+    return estimate
+
+
+def hutchinson_rule(zKz: torch.Tensor, ctz, jitter: float):
+    """The Hutchinson estimate of tr(K − K̂)/tr̂(K) from the probes' zᵀKz
+    (q,), with ``ctz(C)`` the (d, q) product Cᵀ Z of a state's C."""
+    denom = torch.clamp_min(torch.mean(zKz), 1e-30)
+
+    def estimate(state: AccumState) -> float:
+        CtZ = ctz(state.C)
+        zKhatz = torch.einsum("dq,dq->q", CtZ,
+                              _psd_apply_pinv(state.W, CtZ, jitter))
+        return _estimate(torch.clamp_min(torch.mean(zKz - zKhatz), 0.0) / denom)
+
+    return estimate
+
+
 def make_holdout_estimator(generator: torch.Generator | None, K,
                            num: int = 64, *, jitter: float = 1e-6,
-                           hold=None):
+                           hold=None, mesh=None):
     """Plug-in stopping rule: the relative Nyström-reconstruction error of
     K̂ = C W⁺ Cᵀ on a random holdout principal submatrix, O(h²·d + d³) per
     estimate, independent of n.  The ``min(num, n)`` rows are drawn without
     replacement from ``generator``; ``hold`` gives them instead (a reference
     draw carried across).  With a ``KernelOperator`` the h×h block comes from
-    h² kernel evaluations."""
+    h² kernel evaluations; ``mesh`` (operator only) sums the C row gather
+    over the ranks, on the same rows."""
+    if mesh is not None:
+        from repro_torch.core import distributed as D
+
+        return D.make_sharded_holdout_estimator(generator, K, mesh, num,
+                                                jitter=jitter, hold=hold)
     op = _operator(K)
     n = K.shape[0]
     dev = _device(K)
@@ -380,24 +440,23 @@ def make_holdout_estimator(generator: torch.Generator | None, K,
         Kh = op.submatrix(hold, hold).float()
     else:
         Kh = K.index_select(0, hold).index_select(1, hold).float()
-    denom = torch.clamp_min(torch.linalg.norm(Kh), 1e-30)
-
-    def estimate(state: AccumState) -> float:
-        Ch = state.C.index_select(0, hold)
-        Khat = Ch @ _psd_apply_pinv(state.W, Ch.T, jitter)
-        return _estimate(torch.linalg.norm(Kh - Khat) / denom)
-
-    return estimate
+    return holdout_rule(Kh, lambda C: C.index_select(0, hold), jitter)
 
 
 def make_hutchinson_estimator(generator: torch.Generator | None, K,
                               num_probes: int = 8, *, jitter: float = 1e-6,
-                              probes=None):
+                              probes=None, mesh=None):
     """Plug-in stopping rule: the Hutchinson estimate of the relative trace
     residual tr(K − K̂)/tr̂(K) with (n, q) Rademacher probes drawn from
     ``generator`` (``probes`` gives them instead).  K Z is formed once, so
     each estimate costs O(n·d·q + d³); with a ``KernelOperator`` K Z is a
-    streamed matvec, O(chunk·n) memory."""
+    streamed matvec, O(chunk·n) memory.  ``mesh`` (operator only) forms this
+    rank's rows of K Z and sums every contraction over the ranks."""
+    if mesh is not None:
+        from repro_torch.core import distributed as D
+
+        return D.make_sharded_hutchinson_estimator(generator, K, mesh, num_probes,
+                                                   jitter=jitter, probes=probes)
     op = _operator(K)
     n = K.shape[0]
     dev = _device(K)
@@ -405,16 +464,8 @@ def make_hutchinson_estimator(generator: torch.Generator | None, K,
         probes = _rademacher(generator, (n, num_probes), torch.float32)
     Z = torch.as_tensor(probes).to(dev, torch.float32)
     KZ = op.matvec(Z) if op is not None else K.float() @ Z
-    zKz = torch.einsum("nq,nq->q", Z, KZ)
-    denom = torch.clamp_min(torch.mean(zKz), 1e-30)
-
-    def estimate(state: AccumState) -> float:
-        CtZ = state.C.T @ Z
-        zKhatz = torch.einsum("dq,dq->q", CtZ,
-                              _psd_apply_pinv(state.W, CtZ, jitter))
-        return _estimate(torch.clamp_min(torch.mean(zKz - zKhatz), 0.0) / denom)
-
-    return estimate
+    return hutchinson_rule(torch.einsum("nq,nq->q", Z, KZ), lambda C: C.T @ Z,
+                           jitter)
 
 
 def doubling_ladder(state: AccumState, m_max: int, tol: float, apply_batch,
@@ -456,14 +507,21 @@ def make_leverage_refine(seed: int, *, lam: float, mix: float = 0.1,
 
 
 def accum_grow_doubling(K, state: AccumState, *, tol: float, estimator,
-                        use_kernel: bool | None = None,
-                        refine=None) -> tuple[AccumState, int]:
+                        use_kernel: bool | None = None, refine=None,
+                        mesh=None) -> tuple[AccumState, int]:
     """Adaptive growth on the DOUBLING schedule: fold B slabs in one data
     pass (``accum_grow_batched``), check the estimator, B ← 2B — O(log m)
-    passes over K (or X).  Returns ``(state, passes)``."""
+    passes over K (or X).  With ``mesh`` (operator only) every batch is a
+    sharded sweep; pass a shard-aware estimator (``make_*_estimator(mesh=…)``)
+    and ``refine`` sees the state with all n rows of C
+    (``distributed.gathered_refine``).  Returns ``(state, passes)``."""
+    if mesh is not None and refine is not None:
+        from repro_torch.core import distributed as D
+
+        refine = D.gathered_refine(refine, D.operator_mesh(K, mesh)[1])
 
     def apply_batch(s, B):
-        return accum_grow_batched(K, s, B, use_kernel=use_kernel)
+        return accum_grow_batched(K, s, B, use_kernel=use_kernel, mesh=mesh)
 
     return doubling_ladder(state, state.m_max, tol, apply_batch, estimator,
                            refine=refine)
@@ -471,21 +529,22 @@ def accum_grow_doubling(K, state: AccumState, *, tol: float, estimator,
 
 def accum_grow_adaptive(K, state: AccumState, *, tol: float, estimator,
                         check_every: int = 1, use_kernel: bool | None = None,
-                        schedule: str = "unit") -> AccumState:
+                        schedule: str = "unit", mesh=None) -> AccumState:
     """Grow until ``estimator(state) ≤ tol`` or the ``m_max`` pre-drawn
     slabs are used.  ``schedule="unit"`` folds one slab per pass and checks
     every ``check_every`` slabs (and at m_max); ``"doubling"`` delegates to
-    ``accum_grow_doubling``."""
+    ``accum_grow_doubling``.  With ``mesh`` (operator only) the steps are
+    sharded; pass a shard-aware estimator (``make_*_estimator(mesh=…)``)."""
     if schedule not in ("unit", "doubling"):
         raise ValueError(f"unknown schedule {schedule!r}")
     if schedule == "doubling":
         state, _ = accum_grow_doubling(K, state, tol=tol, estimator=estimator,
-                                       use_kernel=use_kernel)
+                                       use_kernel=use_kernel, mesh=mesh)
         return state
     tol32 = _f32(tol)
     m_max = state.m_max
     while state.m < m_max and state.err > tol32:
-        state = accum_step(K, state, use_kernel=use_kernel)
+        state = accum_step(K, state, use_kernel=use_kernel, mesh=mesh)
         if state.m % check_every == 0 or state.m >= m_max:
             state = dataclasses.replace(state, err=estimator(state))
     return state
@@ -497,7 +556,7 @@ def grow_sketch_both(seed: int, K, d: int, *, m_max: int = 32,
                      use_kernel: bool | None = None,
                      schedule: str = "doubling", scheme: str = "uniform",
                      scheme_lam: float | None = None, scheme_mix: float = 0.1,
-                     state: AccumState | None = None
+                     state: AccumState | None = None, mesh=None
                      ) -> tuple[AccumSketch, torch.Tensor, torch.Tensor, dict]:
     """One-call entry point: grow a sketch on K — a precomputed matrix or a
     ``KernelOperator`` — until the error target is met (or to m_max when
@@ -517,13 +576,21 @@ def grow_sketch_both(seed: int, K, d: int, *, m_max: int = 32,
     (seed, ``HOLDOUT_STREAM``), the redraws of phase i from (seed,
     ``REFINE_STREAM`` + i).  ``state`` (an empty state with this n, d and
     m_max, e.g. ``interop.state_from_numpy``) replaces the seed's slab draw.
-    The state lives on K's device."""
+    The state lives on K's device.
+
+    ``mesh`` (operator only) grows on this rank's rows (``core.distributed``):
+    the same draws, holdout rows and redraws as on one device, every batch a
+    sharded sweep; the returned C is this rank's rows, the rest replicated."""
     from repro_torch.core.schemes import validate_scheme
 
     validate_scheme(scheme)
     if scheme == "leverage" and schedule != "doubling":
         raise ValueError("scheme='leverage' refines between batches and "
                          "needs schedule='doubling'")
+    if mesh is not None:
+        from repro_torch.core import distributed as D
+
+        mesh = D.operator_mesh(K, mesh)[1]
     n = K.shape[0]
     own = state is None           # a state drawn here may be grown in place
     if own:
@@ -533,6 +600,8 @@ def grow_sketch_both(seed: int, K, d: int, *, m_max: int = 32,
         raise ValueError(f"state (n={state.n}, d={state.d}, "
                          f"m_max={state.m_max}, m={state.m}) is not an empty "
                          f"state for n={n}, d={d}, m_max={m_max}")
+    if mesh is not None:
+        state = D.local_state(state, mesh)
     refine = None
     if scheme == "leverage":
         refine = make_leverage_refine(
@@ -544,30 +613,33 @@ def grow_sketch_both(seed: int, K, d: int, *, m_max: int = 32,
             # fixed size is ONE batch: t = 0 makes the survivor rescale 0 and
             # the m_max-slab block is the one-shot sketch
             state = accum_grow_batched(K, state, m_max, use_kernel=use_kernel,
-                                       donate=own)
+                                       donate=own, mesh=mesh)
             passes = 1
         else:
             # leverage at fixed size walks the doubling ladder so the
             # probabilities refine between batches
+            if mesh is not None:
+                refine = D.gathered_refine(refine, mesh)
             sched = doubling_schedule(0, m_max)
             for i, B in enumerate(sched):
-                state = accum_grow_batched(K, state, B, use_kernel=use_kernel)
+                state = accum_grow_batched(K, state, B, use_kernel=use_kernel,
+                                           mesh=mesh)
                 if i < len(sched) - 1:
                     state = refine(state, i)
             passes = len(sched)
     else:
         if estimator is None:
             estimator = make_holdout_estimator(
-                stream_generator(seed, HOLDOUT_STREAM), K)
+                stream_generator(seed, HOLDOUT_STREAM), K, mesh=mesh)
         if schedule == "doubling":
             state, passes = accum_grow_doubling(
                 K, state, tol=tol, estimator=estimator, use_kernel=use_kernel,
-                refine=refine)
+                refine=refine, mesh=mesh)
         else:
             state = accum_grow_adaptive(K, state, tol=tol, estimator=estimator,
                                         check_every=check_every,
                                         use_kernel=use_kernel,
-                                        schedule=schedule)
+                                        schedule=schedule, mesh=mesh)
     return finish_grow(state, m_max, passes=passes)
 
 

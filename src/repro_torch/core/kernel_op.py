@@ -120,14 +120,21 @@ class KernelOperator:
 
     def weighted_cols(self, Xq: torch.Tensor, idx: torch.Tensor,
                       coef: torch.Tensor, *, chunk: int | None = None,
-                      use_kernel: bool | None = None) -> torch.Tensor:
+                      use_kernel: bool | None = None, mesh=None) -> torch.Tensor:
         """K(Xq, ·)·S for the sketch described by idx/coef (m, d) — the core
         primitive behind C and prediction.
 
         ``use_kernel`` (default: whether Xq is on a CUDA device) takes the
         ``matfree_apply`` kernel (float32 or bfloat16 data, float32 result;
         float64 data on a card needs ``use_kernel=False``); otherwise the
-        chunked PyTorch loop."""
+        chunked PyTorch loop.  ``mesh`` returns this rank's rows of the
+        result for the replicated Xq (``core.distributed``)."""
+        if mesh is not None:
+            from repro_torch.core import distributed as D
+
+            return D.sharded_weighted_cols(
+                self, Xq, idx, coef, D.resolve_mesh(mesh, Xq.device), chunk=chunk,
+                use_kernel=use_kernel)
         if use_kernel is None:
             use_kernel = A.default_use_kernel(Xq.device)
         lm = self.X.index_select(0, idx.reshape(-1))
@@ -142,29 +149,48 @@ class KernelOperator:
         return stream_cols(Xq, lm, coef, self.kernel_fn, chunk=chunk)
 
     def sketch_cols(self, sk: AccumSketch, *, chunk: int | None = None,
-                    use_kernel: bool | None = None) -> torch.Tensor:
-        """C = K S (n, d) — O(n·m·d) kernel evaluations, O(n·d) memory."""
+                    use_kernel: bool | None = None, mesh=None) -> torch.Tensor:
+        """C = K S (n, d) — O(n·m·d) kernel evaluations, O(n·d) memory
+        (this rank's rows under ``mesh``)."""
         return self.weighted_cols(self.X, sk.indices, sk.coef, chunk=chunk,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, mesh=mesh)
 
     def cross_cols(self, Xq: torch.Tensor, sk: AccumSketch, *,
-                   chunk: int | None = None,
-                   use_kernel: bool | None = None) -> torch.Tensor:
+                   chunk: int | None = None, use_kernel: bool | None = None,
+                   mesh=None) -> torch.Tensor:
         """K(Xq, X)·S (nq, d) — the matrix-free predict path: test rows only
-        ever meet the m·d landmark rows."""
+        ever meet the m·d landmark rows (this rank's rows under ``mesh``)."""
         return self.weighted_cols(Xq, sk.indices, sk.coef, chunk=chunk,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, mesh=mesh)
 
     def sketch_both(self, sk: AccumSketch, *, chunk: int | None = None,
-                    use_kernel: bool | None = None
+                    use_kernel: bool | None = None, mesh=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """(C, W) = (K S, SᵀK S) without forming K; W = SᵀC is the plain row
-        gather of C (``apply.sketch_left``), O(m·d²) on top of C."""
+        gather of C (``apply.sketch_left``), O(m·d²) on top of C.  ``mesh``
+        gives this rank's rows of C and W summed over the ranks."""
+        if mesh is not None:
+            from repro_torch.core import distributed as D
+
+            return D.sharded_sketch_both(self, sk, D.resolve_mesh(mesh, self.X.device),
+                                         chunk=chunk, use_kernel=use_kernel)
         C = self.sketch_cols(sk, chunk=chunk, use_kernel=use_kernel)
         return C, A.sketch_left(sk, C)
 
-    def matvec(self, Z: torch.Tensor, *, chunk: int | None = None) -> torch.Tensor:
-        """K @ Z streamed over row chunks — O(chunk·n) peak memory."""
+    def matvec(self, Z: torch.Tensor, *, chunk: int | None = None,
+               mesh=None) -> torch.Tensor:
+        """K @ Z streamed over row chunks — O(chunk·n) peak memory; ``mesh``
+        gives this rank's rows of it."""
+        if mesh is not None:
+            from repro_torch.core import distributed as D
+
+            return D.sharded_matvec(self, Z, D.resolve_mesh(mesh, self.X.device),
+                                    chunk=chunk)
+        return self.matvec_rows(self.X, Z, chunk=chunk)
+
+    def matvec_rows(self, Xr: torch.Tensor, Z: torch.Tensor, *,
+                    chunk: int | None = None) -> torch.Tensor:
+        """K(Xr, X) @ Z for the rows ``Xr``, streamed over chunks of them."""
         Zm = Z[:, None] if Z.ndim == 1 else Z
         if chunk is None:
             chunk = max(8, (4 * 1024 * 1024) // max(self.n, 1))
@@ -174,7 +200,7 @@ class KernelOperator:
         def _block(xb):
             return kf(xb, self.X).float() @ Z32
 
-        out = _scan_row_chunks(self.X, chunk, _block)
+        out = _scan_row_chunks(Xr, chunk, _block)
         return out[:, 0] if Z.ndim == 1 else out
 
     def dense(self, *, force: bool = False) -> torch.Tensor:

@@ -13,6 +13,10 @@ sketch:
   * ``kmeans`` — Lloyd with k-means++ seeding and restarts, on a generator;
   * ``spectral_cluster`` — the pipeline, at a fixed ``m`` or an error
     target ``tol`` that lets the engine choose m.
+
+On a data mesh (``core.distributed``) C holds a rank's rows: the n-sums (the
+degrees' Cᵀ1, the lift's BᵀB) are summed over the ranks, and the thin SVD of
+the row-sharded B comes from the d×d eigh of BᵀB.
 """
 from __future__ import annotations
 
@@ -40,40 +44,55 @@ def _w_pinv_factors(W: torch.Tensor, eps: float):
 
 
 def nystrom_eigh(C: torch.Tensor, W: torch.Tensor, k: int | None = None, *,
-                 eps: float = 1e-7, w_factors=None
+                 eps: float = 1e-7, w_factors=None, mesh=None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k eigenpairs of K̂ = C W⁺ Cᵀ: W = UΛUᵀ gives B = C U Λ^{-1/2}
     with K̂ = B Bᵀ, and the thin SVD B = P Σ Qᵀ gives K̂ = P Σ² Pᵀ.
     Eigenvalues of W below ``eps``·max count as zero.  Returns (eigvals (k,),
-    eigvecs (n, k)) in descending order; eigenvectors are fixed up to sign."""
+    eigvecs (n, k)) in descending order; eigenvectors are fixed up to sign.
+    With ``mesh`` (a ``DataMesh``) C and the eigenvectors are this rank's
+    rows: BᵀB = Q Σ² Qᵀ summed over the ranks, and P = B Q Σ⁻¹."""
     d = W.shape[0]
     k = d if k is None else k
     U, _, inv_sqrt = (w_factors if w_factors is not None
                       else _w_pinv_factors(W, eps))
     B = (C @ U) * inv_sqrt[None, :]
-    P, s, _ = torch.linalg.svd(B, full_matrices=False)
-    return s[:k] ** 2, P[:, :k]
+    if mesh is None:
+        P, s, _ = torch.linalg.svd(B, full_matrices=False)
+        return s[:k] ** 2, P[:, :k]
+    from repro_torch.core.distributed import sharded_gram
+
+    s2, Q = torch.linalg.eigh(sharded_gram(B, B, mesh))
+    s2, Q = s2.flip(0)[:k], Q.flip(1)[:, :k]
+    return s2, (B @ Q) / torch.sqrt(torch.clamp_min(s2, 1e-30))[None, :]
 
 
 def sketched_degrees(C: torch.Tensor, W: torch.Tensor, *, eps: float = 1e-7,
-                     w_factors=None) -> torch.Tensor:
-    """Degree vector of the sketched affinity, D = K̂ 1 = C (W⁺ (Cᵀ 1))."""
+                     w_factors=None, mesh=None) -> torch.Tensor:
+    """Degree vector of the sketched affinity, D = K̂ 1 = C (W⁺ (Cᵀ 1));
+    with ``mesh`` C and D are this rank's rows and Cᵀ1 is summed over the
+    ranks."""
     U, inv, _ = w_factors if w_factors is not None else _w_pinv_factors(W, eps)
     v = torch.sum(C, dim=0)
+    if mesh is not None:
+        from repro_torch.core.distributed import all_reduce
+
+        v = all_reduce(v, mesh)
     return C @ (U @ (inv * (U.T @ v)))
 
 
 def sketched_spectral_embedding(C: torch.Tensor, W: torch.Tensor, k: int, *,
-                                normalized: bool = True, eps: float = 1e-7
-                                ) -> tuple[torch.Tensor, torch.Tensor]:
+                                normalized: bool = True, eps: float = 1e-7,
+                                mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k spectral embedding of K̂ = C W⁺ Cᵀ; ``normalized`` embeds
     D^{-1/2} K̂ D^{-1/2} (Ng–Jordan–Weiss) by folding D^{-1/2} into C.
-    Returns (eigvals (k,), embedding (n, k))."""
+    Returns (eigvals (k,), embedding (n, k)); with ``mesh`` C and the
+    embedding are this rank's rows."""
     factors = _w_pinv_factors(W, eps)
     if normalized:
-        deg = sketched_degrees(C, W, eps=eps, w_factors=factors)
+        deg = sketched_degrees(C, W, eps=eps, w_factors=factors, mesh=mesh)
         C = C * (1.0 / torch.sqrt(torch.clamp_min(deg, 1e-12)))[:, None]
-    return nystrom_eigh(C, W, k, eps=eps, w_factors=factors)
+    return nystrom_eigh(C, W, k, eps=eps, w_factors=factors, mesh=mesh)
 
 
 # --------------------------------------------------------------------------- #
@@ -147,7 +166,7 @@ def spectral_cluster(seed: int, K, n_clusters: int, *, d: int,
                      m_max: int = 32, probs=None, normalized: bool = True,
                      use_kernel: bool | None = None, kmeans_restarts: int = 4,
                      kmeans_iters: int = 25, schedule: str = "doubling",
-                     scheme: str = "uniform") -> SpectralResult:
+                     scheme: str = "uniform", mesh=None) -> SpectralResult:
     """Sketched spectral clustering of the affinity K — a dense (n, n)
     tensor or a ``KernelOperator``.
 
@@ -159,23 +178,33 @@ def spectral_cluster(seed: int, K, n_clusters: int, *, d: int,
     at fixed size too, so its probabilities refine between batches.
 
     The slabs are drawn from ``seed``'s stream and the k-means seeding from
-    (seed, ``KMEANS_STREAM``)."""
+    (seed, ``KMEANS_STREAM``).
+
+    ``mesh`` (operator only) computes (C, W) and the embedding on each
+    rank's rows, gathers the (n, k) embedding once, and runs k-means on it
+    on every rank from the same generator, so the labels are replicated."""
     if tol is not None and m is not None:
         raise ValueError("pass either m= or tol=, not both")
+    if mesh is not None:
+        from repro_torch.core import distributed as D
+
+        mesh = D.operator_mesh(K, mesh)[1]
     if tol is not None or scheme == "leverage":
         sk, C, W, info = A.grow_sketch_both(
             seed, K, d, m_max=m_max if m is None else m, tol=tol, probs=probs,
-            use_kernel=use_kernel, schedule=schedule, scheme=scheme)
+            use_kernel=use_kernel, schedule=schedule, scheme=scheme, mesh=mesh)
     else:
         m_fix = m_max if m is None else m
         sk = make_accum_sketch(stream_generator(seed), K.shape[0], d, m_fix,
                                probs, scheme=scheme, device=A._device(K))
-        C, W = A.sketch_both(K, sk, use_kernel=use_kernel)
+        C, W = A.sketch_both(K, sk, use_kernel=use_kernel, mesh=mesh)
         info = {"m": sk.m, "m_max": m_max, "err": float("nan")}
     eigvals, U = sketched_spectral_embedding(C.float(), W.float(), n_clusters,
-                                             normalized=normalized)
+                                             normalized=normalized, mesh=mesh)
     # row-normalize (NJW step 4): points on the unit sphere of the eigenspace
     emb = U / torch.clamp_min(torch.linalg.norm(U, dim=1, keepdim=True), 1e-12)
+    if mesh is not None:
+        emb = D.gather_rows(mesh, emb, K.shape[0])
     labels, _, _ = kmeans(stream_generator(seed, KMEANS_STREAM), emb,
                           n_clusters, iters=kmeans_iters,
                           restarts=kmeans_restarts)
