@@ -78,6 +78,20 @@
         ranks, the float64 fit to 1e-5, the doubling growth's m and passes.
    Float32 θ is held through its residual in the single-device system and
    its fitted values at ``F32_FIT_TOL`` (see there).
+   Then path (o), training (``repro_torch.train``, ``train_path``), once,
+   its launch counts from 0 (the reference's training reaches no
+   ``pallas_call``, so none of the nine kernels may launch):
+   (o1) stablelm-3b at full width and depth (2.795 B bfloat16 parameters
+        from seed 0, AdamW with float32 masters, ``remat="full"``) on
+        4 × 4096 synthetic tokens for 10 steps, compression off and then on:
+        losses and gradient norms finite and falling, each step's ms and
+        tokens/s, the peak device memory, ``compress_ratio`` against the
+        reckoned 0.9194, and one more step under the profiler;
+   (o2) one superblock with compression on: 8 steps in one run against 4
+        steps, a checkpoint and a fresh run resumed to 8 — the losses of
+        steps 4–7 and the final state bit for bit (the loop runs under
+        ``torch.use_deterministic_algorithms``, so the script sets
+        ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before CUDA starts).
 4. Prints one ``{"kernels": [...]}`` line (with each kernel's device ms
    summed on the paths of pass 3, (m) and (n1)), the card line, and as the
    last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -111,6 +125,8 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 494.7e12
+# bfloat16 operations/s on the tensor cores (dense), the same data sheet
+BF16_OPS_PER_S = 989e12
 # SFU results (ex2, rsqrt) a clock an SM on Hopper (CUDA C++ Programming
 # Guide, throughput of native arithmetic instructions, compute capability 9.0)
 SFU_PER_CLOCK_SM = 16
@@ -147,6 +163,15 @@ N_MESH2, N_HUTCH, MESH_TIMEOUT = 2**21 - 1, 8192, 120
 # through its residual in the single-device system, and the fitted values at
 # 1e-5 in float64
 F32_FIT_TOL = 1e-2
+# path (o), training: stablelm-3b at full width and depth on 4 × 4096 tokens
+# (SHAPES["train_4k"]'s sequence, the global batch cut from 256 to 4 for one
+# card), 10 steps a run; the kill-and-resume check at one superblock, 8
+# steps, resumed from step 4; the optimizer both use (from a random init the
+# full-size loss spikes within 10 steps at lr_peak 1e-3, and at 3e-4 with 2
+# or 10 warmup steps, on the H100; 1e-4 falls, PERF.md §6)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "stablelm-3b", 4, 4096, 10
+RESUME_STEPS, RESUME_AT = 8, 4
+TRAIN_OPT = dict(lr_peak=1e-4, warmup_steps=2)
 
 SRC = "src/repro_torch/kernels/accum_apply/csrc/accum_apply.cu"
 LSRC = "src/repro_torch/kernels/landmark_attention/csrc/landmark_attention.cu"
@@ -486,10 +511,27 @@ def residual(C, W, y, theta, lam: float) -> float:
 
 
 def digest(t) -> str:
-    """A hash of a tensor's bytes, to compare results across processes."""
+    """A hash of a tensor's bytes (bfloat16 through its 16-bit patterns), to
+    compare results across processes and runs."""
     import hashlib
 
-    return hashlib.sha1(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+    import torch
+
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha1(t.numpy().tobytes()).hexdigest()
+
+
+def tree_digest(tree) -> str:
+    """One hash of every tensor leaf of a tree (None leaves marked), in the
+    tree's leaf order."""
+    import hashlib
+
+    from repro_torch._util import tree_leaves
+
+    return hashlib.sha1("".join("none" if x is None else digest(x)
+                                for x in tree_leaves(tree)).encode()).hexdigest()
 
 
 def collective_ms(torch, D, mesh, shape) -> tuple[float, float]:
@@ -587,8 +629,217 @@ def mesh_rank(rank: int, size: int, store: str, out: str) -> int:
     return 0
 
 
+def train_step_ops(cfg, batch: int, seq: int, q_chunk: int = 512) -> tuple[float, float]:
+    """(bfloat16 GEMM operations, float32 operations) of one training step at
+    ``remat="full"``, from the shapes: every product runs four times (the
+    forward, its recompute in the backward, and the backward's two); the
+    bfloat16 ones are the blocks' projections, the float32 ones the
+    attention's two einsums over the keys each query chunk reads and the
+    float32 output head."""
+    D, H, Hkv, Dh, L = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    tokens = batch * seq
+    per_layer = D * (H + 2 * Hkv) * Dh + H * Dh * D + 3 * D * cfg.d_ff
+    qc = seq // max(seq // q_chunk, 1)
+    pairs = sum(min(qc, seq - s0) * min(seq, s0 + qc) for s0 in range(0, seq, qc))
+    attn = 2 * 2 * batch * H * Dh * pairs * L
+    head = 2 * tokens * D * cfg.vocab_size
+    return 4 * 2 * per_layer * L * tokens, 4 * (attn + head)
+
+
+def kernel_class(name: str) -> str:
+    """A device kernel's class by its name: float32 or bfloat16 GEMM,
+    softmax, reduction, indexing or elementwise."""
+    low = name.lower()
+    if any(k in low for k in ("gemm", "nvjet", "cutlass")):
+        return "gemm float32" if "f32f32_f32f32" in low or "sgemm" in low else "gemm bfloat16"
+    for key, cls in (("softmax", "softmax"), ("reduce", "reduction"), ("index", "indexing"),
+                     ("scatter", "indexing"), ("gather", "indexing"), ("memcpy", "copy"),
+                     ("memset", "copy"), ("elementwise", "elementwise"), ("cat", "copy")):
+        if key in low:
+            return cls
+    return "other"
+
+
+def train_path(torch, dev, trace, smi: str, *, cfg=None, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, steps=TRAIN_STEPS, resume_steps=RESUME_STEPS,
+               resume_at=RESUME_AT) -> None:
+    """Path (o), training (``repro_torch.train``) through ``train.loop.run``:
+    (o1) ``cfg`` (stablelm-3b at full width and depth) from seed 0 for
+    ``steps`` steps on ``global_batch`` (batch × seq), ``remat="full"``,
+    compression off and then on, printing each step's loss, gradient norm,
+    ms and tokens/s, each run's peak device memory and compress_ratio, and
+    one more step under the profiler (``PathTrace`` path "train": the
+    device's busy share and its kernels by time); (o2) ``cfg`` at one
+    superblock with compression on: ``resume_steps`` steps in one run against
+    ``resume_at`` steps, a checkpoint and a fresh run resumed from it — the
+    losses after ``resume_at`` and the final state bit for bit."""
+    import dataclasses
+    import shutil
+
+    from repro_torch._util import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    from repro_torch.optim.compress import CompressConfig
+    from repro_torch.train import step as TS
+    from repro_torch.train.loop import LoopConfig, deterministic, run
+
+    cfg = cfg or get_config(TRAIN_ARCH)
+    cuda = dev.type == "cuda"
+    opt = AdamWConfig(total_steps=steps, **TRAIN_OPT)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)
+    t_all = time.perf_counter()
+
+    def phase(fn):
+        """(fn(), seconds on the host clock between device synchronizations)."""
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def training(cfg, tc, lc, record):
+        """``run`` from seed 0's state; ``record`` gets each step's numbers
+        and the last state."""
+        def step_fn(state, tok, lab, i):
+            t0 = time.perf_counter()
+            state, mets = TS.train_step(state, tok, lab, i, cfg, tc)
+            loss = mets["loss"].item()                  # ends in a synchronization
+            ms = (time.perf_counter() - t0) * 1e3
+            record["steps"].append(dict(loss=loss, grad_norm=mets["grad_norm"].item(), ms=ms,
+                                        ratio=mets.get("compress_ratio")))
+            record["state"] = state
+            return state, mets
+
+        record.setdefault("steps", [])
+        return run(cfg, tc, dc, lc, step_fn=step_fn, log=lambda *a: None,
+                   init_params_fn=lambda: TS.init_train_state(init_params(0, cfg, device=dev),
+                                                              tc))
+
+    # (o1) full width and depth, compression off, then on
+    n_params = None
+    for compress in (None, CompressConfig()):
+        tc = TS.TrainConfig(optimizer=opt, remat="full", n_micro=1, compress=compress)
+        label = "compressed" if compress else "uncompressed"
+        rec: dict = {}
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rep = training(cfg, tc, LoopConfig(total_steps=steps, log_every=10**9), rec)
+        secs = time.perf_counter() - t0
+        n_params = param_count(rec["state"].params)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+        for i, r in enumerate(rec["steps"]):
+            print(f"  (o1) {label} step {i}: loss {r['loss']:.5f}, grad_norm "
+                  f"{r['grad_norm']:.5g}, {r['ms']:.1f} ms, "
+                  f"{batch * seq / r['ms'] * 1e3:.1f} tokens/s")
+        steady = statistics.median(r["ms"] for r in rec["steps"][2:]) if steps > 2 else None
+        ratio = rec["steps"][-1]["ratio"]
+        print(f"  (o1) {label}: {cfg.name}, {n_params} parameters, batch {batch} × {seq}, "
+              f"{steps} steps in {secs:.1f} s; median step of steps 2–{steps - 1} "
+              f"{steady} ms ({batch * seq / steady * 1e3 if steady else 0:.1f} tokens/s); "
+              f"peak device memory {peak:.2f} GB (max_memory_allocated); compress_ratio "
+              f"{ratio}; stragglers {rep.straggler_steps}; card: {smi}")
+        losses = [r["loss"] for r in rec["steps"]]
+        check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                  for r in rec["steps"]) and len(losses) == steps,
+              f"(o1) {label}: every loss and gradient norm finite")
+        check(statistics.mean(losses[-3:]) < losses[0],
+              f"(o1) {label}: the mean of the last 3 losses {statistics.mean(losses[-3:]):.5f} "
+              f"below the first {losses[0]:.5f}")
+        if compress:
+            # the leaves of ≥ min_rows rows (embed and lm_head) send d = ratio·p
+            # of their p rows
+            eligible = [x for x in tree_leaves(rec["state"].params)
+                        if x.ndim >= 2 and x.shape[0] >= compress.min_rows]
+            want = (n_params - sum(x.numel() for x in eligible) + sum(
+                int(x.shape[0] * compress.ratio) * x[0].numel() for x in eligible)) / n_params
+            check(abs(ratio - want) <= 1e-3,
+                  f"(o1) compress_ratio {ratio:.6f}, reckoned {want:.6f} (tol 1e-3)")
+        else:
+            # one more step, profiled: where the device time of a step goes
+            state = rec.pop("state")
+            tok, lab = global_batch(dc, steps, device=dev)
+            with deterministic():
+                trace.begin("train")
+                t0 = time.perf_counter()
+                state, mets = TS.train_step(state, tok, lab, steps, cfg, tc)
+                mets["loss"].item()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                trace.end()
+            by = trace.by_kernel.get("train", {})
+            busy = sum(by.values())
+            top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
+            classes: dict[str, float] = {}
+            for name, ms in by.items():
+                classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + ms
+            print(f"  (o1) one step under the profiler: {wall_ms:.1f} ms wall, device "
+                  f"{busy:.1f} ms ({busy / wall_ms:.1%} busy); by class (ms): "
+                  f"{ {k: round(v, 1) for k, v in sorted(classes.items(), key=lambda kv: -kv[1])} }"
+                  f"; by kernel (ms): {[(k[:70], round(v, 2)) for k, v in top]}")
+            ops16, ops32 = train_step_ops(cfg, batch, seq, tc.q_chunk)
+            bound = (ops16 / BF16_OPS_PER_S + ops32 / F32_OPS_PER_S) * 1e3
+            print(f"  (o1) a step's operations: {ops16:.4g} bfloat16 (GEMMs), {ops32:.4g} "
+                  f"float32 (attention einsums, head); bound {bound:.1f} ms at "
+                  f"{BF16_OPS_PER_S / 1e12:.0f} and {F32_OPS_PER_S / 1e12:.0f} TFLOP/s, "
+                  f"summed (one stream runs them in turn): the step is at "
+                  f"{bound / busy if busy else 0:.1%} of it on device time")
+            # one more step in its two phases, host clock between synchronizations
+            tok, lab = global_batch(dc, steps + 1, device=dev)
+            with deterministic():
+                (_, _, grads), t_grad = phase(lambda: TS._grads(
+                    state.params, tok, lab, None, cfg, tc))
+                out, t_opt = phase(lambda: adamw_update(grads, state.opt, tc.optimizer))
+            print(f"  (o1) a step's phases: loss and gradients (forward, recompute, backward) "
+                  f"{t_grad * 1e3:.1f} ms; adamw_update {t_opt * 1e3:.1f} ms")
+            del state, mets, tok, lab, grads, out
+        rec.clear()
+    check(n_params is not None and (cfg.name != TRAIN_ARCH or n_params == 2_795_276_800),
+          f"(o1) {cfg.name}: {n_params} parameters")
+
+    # (o2) kill and resume at one superblock, compression on
+    cfg1 = dataclasses.replace(cfg, n_layers=len(cfg.pattern), n_superblocks=1)
+    tc = TS.TrainConfig(optimizer=dataclasses.replace(opt, total_steps=resume_steps),
+                        remat="full", compress=CompressConfig())
+    t0 = time.perf_counter()
+    whole: dict = {}
+    rep_w = training(cfg1, tc, LoopConfig(total_steps=resume_steps, log_every=10**9), whole)
+    want = {k: tree_digest(getattr(whole["state"], k)) for k in ("params", "opt", "ef")}
+    whole.clear()
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        lc = dict(ckpt_dir=ckdir, ckpt_every=10**9, keep=1, log_every=10**9)
+        t1 = time.perf_counter()
+        training(cfg1, tc, LoopConfig(total_steps=resume_at, **lc), {})
+        t2 = time.perf_counter()
+        resumed: dict = {}
+        rep_r = training(cfg1, tc, LoopConfig(total_steps=resume_steps, **lc), resumed)
+        t3 = time.perf_counter()
+        got = {k: tree_digest(getattr(resumed["state"], k)) for k in ("params", "opt", "ef")}
+        resumed.clear()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"  (o2) {cfg1.name} at one superblock: {resume_steps} steps uninterrupted "
+          f"{t1 - t0:.1f} s; {resume_at} steps and a checkpoint {t2 - t1:.1f} s; resumed to "
+          f"{resume_steps} {t3 - t2:.1f} s (each run writes its last step, keep=1)")
+    check(rep_r.resumed_from == resume_at and rep_r.losses == rep_w.losses[resume_at:],
+          f"(o2) losses of steps {resume_at}–{resume_steps - 1} bitwise equal: "
+          f"{rep_r.losses} (resumed from {rep_r.resumed_from})")
+    check(got == want, "(o2) the final parameters, AdamW state and error feedback have "
+                       "equal digests, resumed and uninterrupted")
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"  (o) {time.perf_counter() - t_all:.1f} s in all")
+
+
 def main() -> int:
     """Run the checks and the main path; return the exit code."""
+    # path (o) trains deterministically: cuBLAS reads this when CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1888,6 +2139,21 @@ def main() -> int:
           f"{ {k: round(v[0], 4) for k, v in trace.by_wrapper['mesh'].items()} }")
     check(launches["mesh"]["matfree_apply"] > 0 and launches.get("mesh2", {}).get(
         "matfree_apply", 0) > 0, "matfree_apply launched on path (n), one rank and two")
+
+    # ---- 8. path (o): training ------------------------------------------------ #
+    # once, its launch counts from 0: the reference's training reaches no
+    # pallas_call, so none of the nine kernels may launch
+    print(f"\n== path (o): training {TRAIN_ARCH}; card: {smi} ==")
+    torch.cuda.empty_cache()
+    print(f"  device memory held before (o): {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    reset_counts()
+    trace.on = True
+    train_path(torch, dev, trace, smi)
+    trace.on = False
+    launches["train"] = counts()
+    check(not any(launches["train"].values()) and trace.by_wrapper.get("train") == {},
+          f"path (o) launched none of the nine kernels: {launches['train']}; launch ranges "
+          f"on the device {trace.by_wrapper.get('train')}")
 
     # device ms on the paths: pass 3's KRR, engine and serving paths and
     # (n1) summed by wrapper under the profiler, and path (m)'s calls timed

@@ -24,6 +24,12 @@ KMEANS_STREAM = 0x4B3A
 SLOT_STREAM = 0x510C
 #: the serving engine's temperature sampling, one stream per position
 SAMPLE_STREAM = 0x5A3E
+#: the synthetic token stream, folded with (step, host) (the port's own tag:
+#: the reference folds its data key with the step alone)
+DATA_STREAM = 0xDA7A
+#: sketched gradient compression, folded with (step, leaf) (the port's own
+#: tag, as for the data stream)
+COMPRESS_STREAM = 0xC0DE
 
 _MASK64 = (1 << 64) - 1
 
@@ -45,11 +51,15 @@ def stream_generator(seed: int, tag: int | None = None) -> torch.Generator:
     return g.manual_seed(seed if tag is None else _mix(seed, tag))
 
 
-def position_generator(seed: int, tag: int, pos: int) -> torch.Generator:
-    """The stream (seed, tag) folded with a position: every draw made from it
-    is a pure function of (seed, tag, pos), which a resumed decode relies
+def position_generator(seed: int, tag: int, pos: int, *more: int) -> torch.Generator:
+    """The stream (seed, tag) folded with a position (and with each further
+    counter in ``more``, in turn): every draw made from it is a pure function
+    of (seed, tag, pos, *more), which a resumed decode or training run relies
     on."""
-    return stream_generator(_mix(seed, tag), int(pos))
+    s = _mix(seed, tag)
+    for c in (pos, *more)[:-1]:
+        s = _mix(s, int(c))
+    return stream_generator(s, int((pos, *more)[-1]))
 
 
 def tree_leaves(tree) -> list:

@@ -1,13 +1,15 @@
 """Fault-tolerant checkpointing: npz payload + JSON metadata + atomic rename
-+ retained history (ported from ``repro.checkpoint.ckpt``; the reference's
-msgpack is replaced by numpy's ``.npz`` and the async writer is not ported).
++ retained history, and an asynchronous writer (ported from
+``repro.checkpoint.ckpt``; the reference's msgpack is replaced by numpy's
+``.npz``).
 
 Layout: <dir>/step_<n>/state.npz + meta.json + COMMITTED, written to a tmp
 path and renamed (atomic on POSIX), so a kill mid-write never corrupts the
 latest checkpoint.  Only directories with the COMMITTED marker count, and
 ``latest_step`` sweeps stale ``.tmp`` / uncommitted directories by default.
 Tensors are stored on the host; bfloat16 travels as its uint16 bits with the
-dtype in meta.json.  An npz is a zip with a CRC per array, so a bit-flipped
+dtype in meta.json, and a None leaf (an ineligible leaf's error feedback) as
+an empty array marked "none".  An npz is a zip with a CRC per array, so a bit-flipped
 or torn payload fails to load instead of loading wrong numbers.
 
 ``save`` retries the write with exponential backoff, except on a
@@ -23,6 +25,7 @@ import io
 import json
 import os
 import shutil
+import threading
 import time
 from typing import Any
 
@@ -37,6 +40,8 @@ _COMMIT = "COMMITTED"
 
 
 def _encode(x) -> tuple[np.ndarray, dict]:
+    if x is None:
+        return np.zeros(0, np.uint8), {"dtype": "none", "torch": False}
     if isinstance(x, torch.Tensor):
         t = x.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -48,6 +53,8 @@ def _encode(x) -> tuple[np.ndarray, dict]:
 
 
 def _decode(a: np.ndarray, info: dict, like):
+    if info["dtype"] == "none":
+        return None
     if info["dtype"] == "bfloat16":
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     else:
@@ -189,3 +196,55 @@ def retain(path: str, keep: int = 3) -> None:
     """Remove all but the newest ``keep`` committed checkpoints."""
     for s in committed_steps(path)[keep:]:
         shutil.rmtree(_step_dir(path, s), ignore_errors=True)
+
+
+def _snapshot(x):
+    """A host copy of a leaf that no later in-place update can reach."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    return None if x is None else np.array(x, copy=True)
+
+
+class AsyncCheckpointer:
+    """Overlaps checkpoint writes with training: ``save`` snapshots the tree
+    to host memory (after a device synchronization), then writes it on a
+    daemon thread; ``wait`` joins the writer.
+
+    A writer-thread failure is kept and re-raised by the next ``save``,
+    ``wait`` or ``close``, never swallowed."""
+
+    def __init__(self, path: str, keep: int = 3):
+        self.path = path
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self._exc: BaseException | None = None
+
+    def save(self, tree: PyTree, *, step: int, extra: dict | None = None) -> None:
+        """Wait for the previous write, snapshot ``tree`` and start its write."""
+        self.wait()
+        if torch.cuda.is_available() and any(
+                isinstance(x, torch.Tensor) and x.is_cuda for x in tree_leaves(tree)):
+            torch.cuda.synchronize()
+        host_tree = tree_map(_snapshot, tree)
+
+        def _write():
+            try:
+                save(self.path, host_tree, step=step, extra=extra, keep_last=self.keep)
+            except BaseException as e:  # noqa: BLE001 — re-raised by save()/wait()/close()
+                self._exc = e
+
+        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the writer; re-raise its failure, if any."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+    def close(self) -> None:
+        """Drain the writer and surface any kept failure."""
+        self.wait()

@@ -164,6 +164,12 @@ def all_reduce(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     return t
 
 
+def all_reduce_mean(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """The mean of ``t`` over the mesh's ranks, as a new tensor (``t`` is
+    left as it is); every rank gets the same bits."""
+    return all_reduce(t.clone(memory_format=torch.contiguous_format), mesh).div_(mesh.size)
+
+
 def shard_rows(mesh: DataMesh, arr: torch.Tensor) -> torch.Tensor:
     """This rank's rows of the replicated ``arr`` (a view)."""
     lo, hi = mesh.rows(arr.shape[0])

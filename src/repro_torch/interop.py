@@ -1,6 +1,7 @@
-"""Carry a sketch, an engine state, a fitted model, model parameters or a
-decode cache of the JAX package across as numpy arrays, so that the port can
-be held against the reference on the same draw and the same weights.
+"""Carry a sketch, an engine state, a fitted model, model parameters, a
+training state or a decode cache of the JAX package across as numpy arrays,
+so that the port can be held against the reference on the same draw and the
+same weights.
 
 The port's own draws come from a ``torch.Generator`` and do not reproduce
 JAX's threefry bits; these builders take the reference's (indices, signs,
@@ -92,6 +93,27 @@ def params_from_numpy(tree, cfg, *, device) -> dict:
             raise ValueError(f"blocks/{key} is not stacked over {cfg.n_superblocks} "
                              "superblocks")
     return params
+
+
+def train_state_from_numpy(state, cfg, *, device):
+    """The port's ``TrainState`` for a reference ``TrainState`` with numpy
+    leaves: the parameters through ``params_from_numpy``, the AdamW moments
+    and float32 master weights on ``device``, the step counter on the host,
+    and the error feedback (None leaves kept, or None without
+    compression)."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.step import TrainState
+
+    device = resolve_device(device)
+
+    def tensors(tree):
+        return tree_map(lambda a: None if a is None else _tensor(a, device), tree)
+
+    opt = state.opt
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32)
+    return TrainState(params_from_numpy(state.params, cfg, device=device),
+                      AdamWState(step, tensors(opt.m), tensors(opt.v), tensors(opt.master)),
+                      None if state.ef is None else tensors(state.ef))
 
 
 def cache_from_numpy(cache, *, device):

@@ -1,7 +1,8 @@
 """Attention blocks: GQA + RoPE, chunked-causal prefill, sliding window,
 exact KV-cache decode, and the AccumSketch (paper technique) compressed
 decode (ported from ``repro.models.attention``; the reference's sharding
-constraints drop out: the data mesh is ROADMAP queue 1, item 16)."""
+constraints drop out: they belong to ROADMAP queue 1's "2-D parameter
+mesh")."""
 from __future__ import annotations
 
 from typing import NamedTuple

@@ -1,8 +1,9 @@
-"""Shared model utilities: init, RMSNorm, RoPE (ported from
-``repro.models.common``; ``chunked_xent`` is training and is not ported)."""
+"""Shared model utilities: init, RMSNorm, RoPE, chunked cross-entropy
+(ported from ``repro.models.common``)."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 PARAM_DTYPE = torch.bfloat16
 
@@ -53,3 +54,46 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
     c = cos[..., :, None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s], dim=-1).to(x.dtype)
+
+
+def _xent_chunk(h: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                W: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(masked cross-entropy sum, mask sum) of one chunk: h (B, c, D),
+    labels and mask (B, c), W (V, D) float32."""
+    logits = h.float() @ W.T
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum((lse - lab) * mask), torch.sum(mask)
+
+
+def chunked_xent(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None, chunk: int = 512
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean cross-entropy over the positions where ``mask`` is 1, without
+    holding the full (B, S, V) logits: h (B, S, D) final hidden states,
+    emb_out (V, D) the output embedding (logits = h @ emb_out.T), labels
+    (B, S) ints, mask (B, S) or None (every position counts).  Returns
+    (loss, count).
+
+    The sequence is cut into ``max(S // chunk, 1)`` equal chunks (a length
+    they do not divide raises, as the reference's reshape does), each run
+    under ``torch.utils.checkpoint`` so that its (B, c, V) logits are
+    recomputed in the backward instead of kept; the output embedding is cast
+    to float32 once, outside the chunks."""
+    B, S, D = h.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    nchunk = max(S // chunk, 1)
+    chunk = S // nchunk
+    hc = h.reshape(B, nchunk, chunk, D)
+    lc = labels.reshape(B, nchunk, chunk)
+    mc = mask.reshape(B, nchunk, chunk)
+    emb_f = emb_out.float()
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(nchunk):
+        ls, ct = checkpoint(_xent_chunk, hc[:, i], lc[:, i], mc[:, i], emb_f,
+                            use_reentrant=False)
+        loss_sum = loss_sum + ls
+        count = count + ct
+    return loss_sum / torch.clamp(count, min=1.0), count

@@ -11,22 +11,35 @@ Params (the reference's names and layout, so the interop map is one-to-one):
 
 Block kinds ``attn``, ``attn_local`` and ``attn_shared`` with the dense FFN
 are ported.  MoE FFNs, Mamba-2 and xLSTM mixers and the audio/vision
-frontends raise ``NotImplementedError`` (ROADMAP queue 1, item 13).
-Decode caches hold one state per layer: ``DecodeCache.blocks`` maps pos{i}
-to a list over superblocks.
+frontends raise ``NotImplementedError`` (ROADMAP queue 1, "the rest of the
+model families").  Decode caches hold one state per layer:
+``DecodeCache.blocks`` maps pos{i} to a list over superblocks.  Training
+(``loss_fn``) checkpoints each superblock as ``remat`` says.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch._util import resolve_device, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sketched_attention import SketchCache
 from repro_torch.models import attention as att
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.common import PARAM_DTYPE, embed_init, rmsnorm, rope_table
+from repro_torch.models.common import (
+    PARAM_DTYPE,
+    chunked_xent,
+    embed_init,
+    rmsnorm,
+    rope_table,
+)
 
 Params = dict
 ATTN_KINDS = ("attn", "attn_local", "attn_shared")
@@ -34,8 +47,9 @@ ATTN_KINDS = ("attn", "attn_local", "attn_shared")
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP queue 1, item 13: "
-        "MoE, Mamba-2 and xLSTM blocks and the frontends)")
+        f"{what} is not ported to the PyTorch package yet (ROADMAP queue 1, \"the "
+        "rest of the model families\": MoE, Mamba-2 and xLSTM blocks and the "
+        "frontends)")
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
@@ -101,17 +115,6 @@ def param_count(params: Params) -> int:
     return sum(x.numel() for x in tree_leaves(params))
 
 
-def _layer(tree: Params, i: int) -> Params:
-    """Superblock i's slice of a stacked parameter subtree (views)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
-
-
-def _block_params(params: Params, kind: str, pos: int, i: int) -> Params:
-    if kind == "attn_shared":
-        return params["shared"]
-    return _layer(params["blocks"][f"pos{pos}"], i)
-
-
 def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Token embeddings times √d_model, the scale computed in the parameter
     dtype as the reference does."""
@@ -124,27 +127,70 @@ def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# Forward (prefill without a cache)
+# Forward (training and prefill without a cache)
 # --------------------------------------------------------------------------- #
 
+def _unstack(tree: Params, n: int) -> list[Params]:
+    """A stacked parameter subtree as n per-superblock subtrees of views, one
+    ``unbind`` a tensor: its backward stacks the n gradients once, where
+    indexing layer by layer would write a zero-filled stacked gradient for
+    every layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective checkpointing for ``remat="dots"``: keep the matrix
+    products' outputs, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_call(policy: str, fn, *args):
+    """``fn(*args)`` under the remat policy: ``"none"`` keeps every
+    activation, ``"full"`` keeps only the arguments and recomputes the rest
+    in the backward, ``"dots"`` also keeps the matrix products.  None moves
+    a bit of the result."""
+    if policy == "none":
+        return fn(*args)
+    if policy == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat must be 'none', 'dots' or 'full', got {policy!r}")
+
+
+def _superblock(h: torch.Tensor, sb: Params, shared: Params, cfg: ModelConfig, sin, cos,
+                q_chunk: int) -> torch.Tensor:
+    for j, kind in enumerate(cfg.pattern):
+        p = shared if kind == "attn_shared" else sb[f"pos{j}"]
+        window = cfg.window if kind == "attn_local" else None
+        h = h + att.attn_forward(p["attn"], rmsnorm(h, p["attn"]["norm"], cfg.norm_eps),
+                                 cfg, sin, cos, window=window, q_chunk=q_chunk)
+        h = _ffn(p, h, cfg)
+    return h
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            cond: torch.Tensor | None = None, q_chunk: int = 512
+            cond: torch.Tensor | None = None, q_chunk: int = 512, remat: str = "dots"
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) → (h_final (B, S, D), aux_loss).  No dense block has an
-    auxiliary loss, so aux is 0."""
+    auxiliary loss, so aux is 0.  ``remat`` ("none", "dots" or "full") is
+    the activation checkpointing of each superblock (``_remat_call``)."""
     _check_cfg(cfg)
     if cond is not None:
         raise _unported("conditioning input (cond)")
     h = _embed(params, tokens, cfg)
     S = h.shape[1]
     sin, cos = rope_table(torch.arange(S, device=h.device), cfg.head_dim, cfg.rope_theta)
-    for i in range(cfg.n_superblocks):
-        for j, kind in enumerate(cfg.pattern):
-            p = _block_params(params, kind, j, i)
-            window = cfg.window if kind == "attn_local" else None
-            h = h + att.attn_forward(p["attn"], rmsnorm(h, p["attn"]["norm"], cfg.norm_eps),
-                                     cfg, sin, cos, window=window, q_chunk=q_chunk)
-            h = _ffn(p, h, cfg)
+    for sb in _unstack(params["blocks"], cfg.n_superblocks):
+        h = _remat_call(remat, _superblock, h, sb, params["shared"], cfg, sin, cos, q_chunk)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
@@ -152,6 +198,20 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 def output_embedding(params: Params) -> torch.Tensor:
     """The output head (the input embedding when tied)."""
     return params.get("lm_head", params["embed"])
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig, *,
+            cond: torch.Tensor | None = None, q_chunk: int = 512, remat: str = "dots"
+            ) -> tuple[torch.Tensor, dict]:
+    """Mean next-token cross-entropy of ``tokens`` (B, S) against ``labels``
+    (B, S) plus the weighted auxiliary loss.  Returns (loss, {"xent", "aux",
+    "tokens"}); every value is a float32 tensor.  ``cond`` raises, as in
+    ``forward``."""
+    h, aux = forward(params, tokens, cfg, cond=cond, q_chunk=q_chunk, remat=remat)
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=h.device)
+    xent, count = chunked_xent(h, output_embedding(params), labels, mask)
+    aux_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
+    return xent + aux_w * aux, {"xent": xent, "aux": aux, "tokens": count}
 
 
 def _head_logits(h_last: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -170,7 +230,7 @@ def _head_logits(h_last: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             q_chunk: int = 512) -> torch.Tensor:
     """Prefill pass → last-position logits (B, V) float32."""
-    h, _ = forward(params, tokens, cfg, q_chunk=q_chunk)
+    h, _ = forward(params, tokens, cfg, q_chunk=q_chunk, remat="none")
     return _head_logits(h[:, -1], output_embedding(params))
 
 
@@ -232,11 +292,11 @@ def _run_blocks(params, cache: DecodeCache, h, cfg: ModelConfig, step
                 ) -> tuple[torch.Tensor, DecodeCache]:
     """Every block in order: ``step(kind, p, h, state) → (h, state)``."""
     blocks = {k: list(v) for k, v in cache.blocks.items()}
-    for i in range(cfg.n_superblocks):
+    for i, sb in enumerate(_unstack(params["blocks"], cfg.n_superblocks)):
         for j, kind in enumerate(cfg.pattern):
             key = f"pos{j}"
-            h, blocks[key][i] = step(kind, _block_params(params, kind, j, i), h,
-                                     blocks[key][i])
+            p = params["shared"] if kind == "attn_shared" else sb[key]
+            h, blocks[key][i] = step(kind, p, h, blocks[key][i])
     return h, DecodeCache(blocks)
 
 

@@ -4,7 +4,7 @@ Ported from ``repro.resilience.degrade``: ``HealthEvent``, ``HealthReport``
 and ``global_health`` record every degradation, and ``solve_psd_ladder`` is
 a numerical ladder.  The kernel dispatch ladder of the reference
 (``ladder_call``) is not ported, because a tensor on a CUDA device never
-falls back from its kernel to the plain version (ROADMAP queue 1, item 15).
+falls back from its kernel to the plain version (ROADMAP, north star).
 """
 from __future__ import annotations
 
