@@ -14,7 +14,8 @@
    tensor-core attention sweeps also print their TFLOP/s and their share of
    the IEEE-FMA bound and of the 3×TF32 bound (``bound_tc_ms``, ``rate``);
    the decode sweep its share of the byte bound, its TB/s, the device
-   operations a call (one launch), float32 and bfloat16; matfree_apply its
+   operations a call (one launch), float32 and bfloat16, and at zamba2's
+   head dim of 112; matfree_apply its
    share of its byte, FP32 and SFU bounds (the SFU's 16 results a clock an
    SM at ``clocks.max.sm``); the column gathers their share of the byte
    bound and of the sector bound (the distinct 32-byte sectors of the
@@ -92,8 +93,26 @@
         steps 4–7 and the final state bit for bit (the loop runs under
         ``torch.use_deterministic_algorithms``, so the script sets
         ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before CUDA starts).
+   Then path (p), the model families (``families_path``), once, its launch
+   counts from 0 (only landmark_attention may launch: the reference's MoE,
+   Mamba-2 and cond code reaches no ``pallas_call``):
+   (p1) zamba2-7b at full width and depth (81 layers, 4.65 B bfloat16
+        parameters), batch 4, 2048-token prompts, 32 greedy tokens with the
+        exact and the sketched cache: prefill ms (the Mamba-2 token scan),
+        decode tokens/s, cache bytes, landmark_attention at head dim 112 on
+        the 27 shared-attention layers (one profiled sketched step), the
+        token scan's device operations a token, ``prefill()`` (chunked SSD)
+        against the token scan (bfloat16 printed; float32 held at 0.05 on
+        the first 512 tokens), and
+        a killed sketched request resumed bitwise;
+   (p2) moonshot-v1-16b-a3b at full width (full depth when the reckoned
+        peak fits), batch 4, 1024-token prompts, 16 greedy tokens: prefill
+        ms, decode tokens/s, a prefill's aux loss and dropped fraction, peak
+        memory, and a second run bitwise (the MoE combine is a gather);
+   (p3) qwen2-vl-2b prefilled after 1024 cond positions, and
+        musicgen-medium trained for two steps after 256 cond positions.
 4. Prints one ``{"kernels": [...]}`` line (with each kernel's device ms
-   summed on the paths of pass 3, (m) and (n1)), the card line, and as the
+   summed on the paths of pass 3, (m), (n1) and (p1)), the card line, and as the
    last line ``{"ok": true, "device": {...}}``.  Any failed check exits
    non-zero before the last line is printed.  Without a CUDA device it
    exits 2.
@@ -172,6 +191,24 @@ F32_FIT_TOL = 1e-2
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "stablelm-3b", 4, 4096, 10
 RESUME_STEPS, RESUME_AT = 8, 4
 TRAIN_OPT = dict(lr_peak=1e-4, warmup_steps=2)
+
+# path (p), the model families: zamba2-7b served at full width and depth
+# (batch 4, 2048-token prompts, 32 greedy tokens, exact and sketched caches;
+# the kill-and-resume check on one 256-token prompt); moonshot-v1-16b-a3b at
+# full width, full depth where the reckoned peak fits MOE_PEAK_GB, else
+# MOE_CUT_SB superblocks (batch 4, 1024-token prompts, 16 greedy tokens,
+# exact cache); the conditioning input: qwen2-vl-2b prefilled (batch 2, 1024
+# tokens after its 1024 cond positions) and musicgen-medium trained for 2
+# steps (2 × 2048 tokens after its 256 cond positions, remat="full")
+HYB_ARCH, HYB_BATCH, HYB_PROMPT, HYB_NEW, HYB_RESUME = "zamba2-7b", 4, 2048, 32, 256
+F32_PROMPT = 512
+MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_NEW = "moonshot-v1-16b-a3b", 4, 1024, 16
+MOE_PEAK_GB, MOE_CUT_SB = 72.0, 24
+VLM_ARCH, VLM_BATCH, VLM_TOKENS = "qwen2-vl-2b", 2, 1024
+AUD_ARCH, AUD_BATCH, AUD_SEQ, AUD_STEPS = "musicgen-medium", 2, 2048, 2
+# the reference's own bound on recurrent logits computed two ways
+# (tests/test_archs_smoke.py:67)
+RECURRENT_TOL = 0.05
 
 SRC = "src/repro_torch/kernels/accum_apply/csrc/accum_apply.cu"
 LSRC = "src/repro_torch/kernels/landmark_attention/csrc/landmark_attention.cu"
@@ -836,6 +873,324 @@ def train_path(torch, dev, trace, smi: str, *, cfg=None, batch=TRAIN_BATCH,
     print(f"  (o) {time.perf_counter() - t_all:.1f} s in all")
 
 
+def reckoned_params(cfg) -> int:
+    """The parameter count of ``cfg`` from its shapes alone (the layout of
+    ``init_params``, counted apart from any tensor)."""
+    D, V, H, Hkv, Dh = cfg.d_model, cfg.vocab_size, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = D * H * Dh + 2 * D * Hkv * Dh + H * Dh * D + D
+    attn += (H * Dh + 2 * Hkv * Dh) if cfg.qkv_bias else 0
+    dense = 3 * D * cfg.d_ff + D
+    n = V * D * (1 if cfg.tie_embeddings else 2) + D
+    if cfg.moe is not None:
+        E, F = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        ffn = D * E + 3 * E * D * F + D + (
+            3 * D * cfg.moe.d_ff_dense + D if cfg.moe.dense_residual else 0)
+    else:
+        ffn = dense
+    for kind in cfg.pattern:
+        if kind == "mamba2":
+            s = cfg.ssm
+            di = s.expand * D
+            hs, ch = di // s.head_dim, di + 2 * s.d_state
+            n += cfg.n_superblocks * (D * (2 * di + 2 * s.d_state + hs) + s.conv_width * ch
+                                      + ch + 3 * hs + di + di * D + D)
+        elif kind != "attn_shared":
+            n += cfg.n_superblocks * (attn + ffn)
+    if "attn_shared" in cfg.pattern:
+        n += attn + dense
+    return n
+
+
+def families_path(torch, dev, trace, smi: str, LK, *, hyb_cfg=None, moe_cfg=None,
+                  vlm_cfg=None, aud_cfg=None, hyb=(HYB_BATCH, HYB_PROMPT, HYB_NEW),
+                  hyb_resume=HYB_RESUME, moe=(MOE_BATCH, MOE_PROMPT, MOE_NEW),
+                  vlm=(VLM_BATCH, VLM_TOKENS), aud=(AUD_BATCH, AUD_SEQ, AUD_STEPS),
+                  scan_counts=(128, 256)) -> None:
+    """Path (p), the model families of ``models/moe.py``, ``models/ssm.py``
+    and the conditioning input, once, weights from seed 0:
+
+    (p1) ``hyb_cfg`` (zamba2-7b) served through ``Engine.generate`` with the
+    exact and the sketched cache: prefill ms (the Mamba-2 layers' token
+    scan), decode tokens/s, cache bytes, the landmark_attention launches of
+    the sketched decode, one profiled sketched decode step (``PathTrace``
+    path "families": the launches' device ms); the token scan's device
+    operations per token (``scan_counts``, by difference); ``prefill()``
+    (the chunked SSD) against the engine's prefill logits, in bfloat16
+    (printed) and in float32 at full depth (held at ``RECURRENT_TOL``); a
+    sketched request killed by the fault plan and resumed, bitwise.
+    (p2) ``moe_cfg`` (moonshot-v1-16b-a3b), exact cache: prefill ms, decode
+    tokens/s, a prefill's aux loss and dropped fraction (every MoE layer's
+    ``MoEMetrics``), peak memory; a second identical run bitwise.
+    (p3) ``vlm_cfg`` (qwen2-vl-2b) prefilled after its cond positions, and
+    ``aud_cfg`` (musicgen-medium) trained for ``aud[2]`` steps with its cond
+    positions: losses finite, the cond positions not counted."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch._util import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MT
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.ssm import SSMState
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.resilience import faults
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.train import step as TS
+
+    cuda = dev.type == "cuda"
+    t_all = time.perf_counter()
+
+    def gb(tree) -> float:
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+                   if isinstance(x, torch.Tensor)) / 1e9
+
+    def prompts_of(cfg, b, n, seed):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randint(0, cfg.vocab_size, (b, n), generator=g).numpy().astype(np.int32)
+
+    def fresh_peak():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+
+    # ---- (p1) the hybrid: zamba2-7b serving ---------------------------------
+    cfg = hyb_cfg or get_config(HYB_ARCH)
+    B, L, new = hyb
+    fresh_peak()
+    params, t_init = wall(torch, lambda: MT.init_params(0, cfg, device=dev))
+    n_params = MT.param_count(params)
+    check(n_params == reckoned_params(cfg),
+          f"(p1) {cfg.name}: {n_params} parameters, reckoned {reckoned_params(cfg)} "
+          f"({gb(params):.2f} GB; drawn in {t_init:.1f} s)")
+    n_attn = cfg.n_superblocks * sum(k.startswith("attn") for k in cfg.pattern)
+    sa = cfg.sketch_attn
+    prompts = prompts_of(cfg, B, L, 21)
+    logits_of = {}
+    for mode in ("exact", "sketched"):
+        eng = Engine(cfg, params, ServeConfig(max_len=L + new, use_sketch=mode == "sketched"))
+        eng.prefill_tokens(eng.new_cache(B), prompts[:, :64])     # warm-up, untimed
+        (cache, logits), tpre = wall(torch, lambda: eng.prefill_tokens(eng.new_cache(B),
+                                                                       prompts))
+        logits_of[mode] = logits
+        del cache
+        fresh_peak()
+        before = LK.landmark_attention.launches
+        (toks, cache), tgen = wall(torch, lambda: eng.generate(prompts, new))
+        la = LK.landmark_attention.launches - before
+        ssm = [st for sts in cache.blocks.values() for st in sts if isinstance(st, SSMState)]
+        tdec = tgen - tpre
+        print(f"  (p1) {cfg.name} {mode:8s}: prefill {B}×{L} tokens {tpre * 1e3:.1f} ms (the "
+              f"token scan); generate {new} tokens {tgen * 1e3:.1f} ms, so decode {new - 1} "
+              f"steps {tdec * 1e3:.1f} ms = {B * (new - 1) / tdec:.1f} tokens/s; cache "
+              f"{gb(cache):.3f} GB ({gb(ssm):.3f} GB of it SSM state); peak "
+              f"{peak_gb():.2f} GB; landmark_attention launches {la}; card: {smi}")
+        check(toks.shape == (B, new) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"(p1) {mode}: {B}×{new} tokens in the vocabulary")
+        want = n_attn * (new - 1) if mode == "sketched" else 0
+        check(la == want, f"(p1) {mode}: landmark_attention launched {la} times, "
+                          f"attention layers × (n_new − 1) = {want} expected")
+        if mode == "sketched":
+            # one more decode step under the profiler: the sweep's launches and
+            # their device time on the path (PathTrace path "families")
+            pos = L + new - 1
+            last = torch.as_tensor(toks[:, -1], device=dev)
+            slots = eng._slots(pos)
+            before = LK.landmark_attention.launches
+            trace.begin("families")
+            (lg, _), tstep = wall(torch, lambda: MT.decode_step(params, cache, last, pos, cfg,
+                                                                slots=slots))
+            trace.end()
+            la = LK.landmark_attention.launches - before
+            rng = trace.by_wrapper.get("families", {}).get("landmark_attention", [0.0, 0])
+            busy = sum(trace.by_kernel.get("families", {}).values())
+            print(f"  (p1) one profiled sketched decode step: {tstep * 1e3:.1f} ms wall, "
+                  f"device {busy:.2f} ms; landmark_attention {la} launches, {rng[0]:.4f} ms "
+                  f"of device time ({rng[0] / max(rng[1], 1) * 1e3:.2f} µs a launch, "
+                  f"{rng[1]} ranges on the device's timeline)")
+            check(la == n_attn and bool(lg.isfinite().all()) and (
+                not trace.on or 0.99 * la <= rng[1] <= la),
+                  f"(p1) the profiled step: {la} landmark_attention launches, {n_attn} "
+                  f"expected, logits finite")
+            del lg
+        del cache, eng
+
+    # the token scan: device operations per prompt token, by difference
+    if cuda:
+        lo, hi = scan_counts
+        eng = Engine(cfg, params, ServeConfig(max_len=hi))
+        ops = [device_ops_per_call(torch, lambda n=n: eng.prefill_tokens(
+            eng.new_cache(B), prompts[:, :n]), calls=1) for n in (lo, hi)]
+        per_tok = (ops[1] - ops[0]) / (hi - lo)
+        mamba = cfg.n_superblocks * cfg.pattern.count("mamba2")
+        print(f"  (p1) the token-scan prefill: {ops[0]} device operations at {lo} tokens, "
+              f"{ops[1]} at {hi}: {per_tok:.1f} a token ({per_tok / mamba:.2f} a token and "
+              f"Mamba-2 layer, {mamba} layers)")
+        del eng
+    # prefill() (the chunked SSD) against the token scan's logits
+    tok_t = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+    lg_chunk, tch = wall(torch, lambda: MT.prefill(params, tok_t, cfg))
+    gaps = {m: (lg_chunk - lg).abs().max().item() for m, lg in logits_of.items()}
+    print(f"  (p1) prefill() (chunked SSD) {tch * 1e3:.1f} ms; bfloat16 at full depth: max "
+          f"|logit gap| to the token scan's {gaps['exact']:.4f} exact, "
+          f"{gaps['sketched']:.4f} sketched (max |logit| {lg_chunk.abs().max().item():.3f}); "
+          f"the reference's own bfloat16 gap grows with depth "
+          f"(scripts/hybrid_prefill_gap.py)")
+    check(bool(lg_chunk.isfinite().all()), "(p1) prefill() logits finite")
+    del params, lg_chunk, logits_of
+    fresh_peak()
+    # the same comparison in float32 at full depth, on the prompts' first
+    # F32_PROMPT tokens (the token scan's time grows with the length alone)
+    n32 = min(L, F32_PROMPT)
+    p32 = MT.init_params(0, cfg, device=dev, dtype=torch.float32)
+    c32 = MT.init_cache(cfg, B, n32, torch.float32, device=dev)
+    (l_scan, _), tscan = wall(torch, lambda: MT.prefill_with_cache(p32, tok_t[:, :n32], cfg,
+                                                                    c32))
+    l_chunk, tch = wall(torch, lambda: MT.prefill(p32, tok_t[:, :n32], cfg))
+    gap = (l_chunk - l_scan).abs().max().item()
+    check(gap < RECURRENT_TOL,
+          f"(p1) float32 at full depth, {B}×{n32} tokens: prefill() (chunked SSD, "
+          f"{tch * 1e3:.1f} ms) against prefill_with_cache (token scan, {tscan * 1e3:.1f} ms): "
+          f"max |logit gap| {gap:.3e} (tol {RECURRENT_TOL}, tests/test_archs_smoke.py:67)")
+    del p32, c32, l_scan, l_chunk
+
+    # a sketched request killed at its 2nd decode chunk and resumed, bitwise
+    params = MT.init_params(0, cfg, device=dev)
+    kw = dict(max_len=2 * sa.d_slots, use_sketch=True, temperature=0.7, seed=3, ckpt_every=4)
+    pr = prompts[:1, :hyb_resume]
+    t0 = time.perf_counter()
+    ref_toks, _ = Engine(cfg, params, ServeConfig(**kw)).generate(pr, 12)
+    with tempfile.TemporaryDirectory() as ckdir:
+        os.environ[faults.ENV_PLAN] = '{"decode.step": {"action": "kill", "at": 2}}'
+        faults.reset()
+        killed = False
+        try:
+            Engine(cfg, params, ServeConfig(ckpt_dir=ckdir, **kw)).generate(pr, 12,
+                                                                            request_id="r")
+        except faults.DeviceLost:
+            killed = True
+        finally:
+            del os.environ[faults.ENV_PLAN]
+            faults.reset()
+        eng = Engine(cfg, params, ServeConfig(ckpt_dir=ckdir, **kw))
+        toks, _ = eng.generate(pr, 12, request_id="r")
+    check(killed and (toks == ref_toks).all() and eng.health.count("ckpt.resume") == 1,
+          f"(p1) a sketched {hyb_resume}-token request killed by the decode.step plan and "
+          f"resumed: the same 12 tokens bitwise ({'killed' if killed else 'NOT killed'}; "
+          f"{time.perf_counter() - t0:.1f} s, 3 runs)")
+    del params, eng
+
+    # ---- (p2) MoE: moonshot-v1-16b-a3b --------------------------------------
+    cfg = moe_cfg or get_config(MOE_ARCH)
+    B, L, new = moe
+    fresh_peak()
+    held = torch.cuda.memory_allocated() / 1e9 if cuda else 0.0
+    # the reckoned peak: bfloat16 weights (the router float32), the exact
+    # cache, the float32 draw of the largest tensor, and what is held already
+    def reckon(c):
+        cache = 2 * c.n_layers * B * (L + new) * c.n_kv_heads * c.head_dim * 2
+        router = c.n_layers * c.d_model * c.moe.n_experts * 2
+        draw = max(c.moe.n_experts * c.d_model * c.moe.d_ff_expert, c.vocab_size * c.d_model)
+        return (2 * reckoned_params(c) + router + cache + 4 * draw) / 1e9 + held
+    full = reckon(cfg)
+    if full > MOE_PEAK_GB:
+        cfg = dataclasses.replace(cfg, n_layers=MOE_CUT_SB * len(cfg.pattern),
+                                  n_superblocks=MOE_CUT_SB)
+    print(f"  (p2) {cfg.name}: reckoned peak at full depth {full:.1f} GB ({held:.2f} GB held "
+          f"before (p2)); running {cfg.n_superblocks} of "
+          f"{(moe_cfg or get_config(MOE_ARCH)).n_superblocks} superblocks")
+    params, t_init = wall(torch, lambda: MT.init_params(0, cfg, device=dev))
+    n_params = MT.param_count(params)
+    check(n_params == reckoned_params(cfg),
+          f"(p2) {cfg.name}: {n_params} parameters ({MT.active_param_count(cfg, params)} "
+          f"active a token), reckoned {reckoned_params(cfg)} ({gb(params):.2f} GB; drawn in "
+          f"{t_init:.1f} s)")
+    prompts = prompts_of(cfg, B, L, 22)
+    eng = Engine(cfg, params, ServeConfig(max_len=L + new))
+    eng.prefill_tokens(eng.new_cache(B), prompts[:, :64])         # warm-up, untimed
+    (cache, _), tpre = wall(torch, lambda: eng.prefill_tokens(eng.new_cache(B), prompts))
+    del cache
+    runs = []
+    for _ in range(2):
+        (toks, cache), tgen = wall(torch, lambda: eng.generate(prompts, new))
+        runs.append(toks)
+        del cache
+    tdec = tgen - tpre
+    # a prefill's MoEMetrics, every MoE layer's, recorded around moe_forward
+    mets = []
+    forward_moe = moe_mod.moe_forward
+
+    def recording(p, h, moe_cfg_):
+        out, m = forward_moe(p, h, moe_cfg_)
+        mets.append(m)
+        return out, m
+
+    moe_mod.moe_forward = recording
+    try:
+        (_, aux), tfwd = wall(torch, lambda: MT.forward(
+            params, torch.as_tensor(prompts, dtype=torch.long, device=dev), cfg, remat="none"))
+    finally:
+        moe_mod.moe_forward = forward_moe
+    dropped = torch.stack([m.dropped_fraction for m in mets]).float()
+    print(f"  (p2) {cfg.name}: prefill {B}×{L} tokens {tpre * 1e3:.1f} ms; generate {new} "
+          f"tokens {tgen * 1e3:.1f} ms, so decode {new - 1} steps {tdec * 1e3:.1f} ms = "
+          f"{B * (new - 1) / tdec:.1f} tokens/s; a prefill's aux loss {aux.item():.5f} "
+          f"(summed over {len(mets)} MoE layers), dropped fraction {dropped.mean().item():.5f} "
+          f"(mean; {dropped.min().item():.5f}–{dropped.max().item():.5f} by layer), forward "
+          f"{tfwd * 1e3:.1f} ms; peak device memory {peak_gb():.2f} GB; card: {smi}")
+    check(len(mets) == cfg.n_layers and bool(torch.isfinite(aux)) and aux.item() > 0
+          and 0.0 <= dropped.min().item() and dropped.max().item() < 1.0,
+          f"(p2) aux loss and dropped fraction finite from all {cfg.n_layers} MoE layers")
+    check(runs[0].shape == (B, new) and bool((runs[0] == runs[1]).all()),
+          f"(p2) two identical generate runs give bitwise the same {B}×{new} tokens "
+          f"(the deterministic combine)")
+    del params, eng, mets, aux
+
+    # ---- (p3) the conditioning input ----------------------------------------
+    cfg = vlm_cfg or get_config(VLM_ARCH)
+    B, n = vlm
+    fresh_peak()
+    params = MT.init_params(0, cfg, device=dev)
+    g = torch.Generator().manual_seed(23)
+    cond = torch.randn((B, cfg.cond_len, cfg.d_model), generator=g).to(dev)
+    tok = torch.as_tensor(prompts_of(cfg, B, n, 24), dtype=torch.long, device=dev)
+    logits, tpre = wall(torch, lambda: MT.prefill(params, tok, cfg, cond=cond))
+    plain = MT.prefill(params, tok, cfg)
+    check(tuple(logits.shape) == (B, cfg.vocab_size) and bool(logits.isfinite().all())
+          and not torch.equal(logits, plain),
+          f"(p3) {cfg.name} ({MT.param_count(params)} parameters): prefill of {B}×{n} tokens "
+          f"after {cfg.cond_len} cond positions {tpre * 1e3:.1f} ms, logits finite and not "
+          f"those without cond; peak {peak_gb():.2f} GB")
+    del params, cond, tok, logits, plain
+
+    cfg = aud_cfg or get_config(AUD_ARCH)
+    B, n, steps = aud
+    fresh_peak()
+    tc = TS.TrainConfig(optimizer=AdamWConfig(lr_peak=1e-4, warmup_steps=1, total_steps=steps),
+                        remat="full")
+    state = TS.init_train_state(MT.init_params(0, cfg, device=dev), tc)
+    g = torch.Generator().manual_seed(25)
+    cond = torch.randn((B, cfg.cond_len, cfg.d_model), generator=g).to(dev)
+    out = []
+    for i in range(steps):
+        tok = torch.as_tensor(prompts_of(cfg, B, n + 1, 26 + i), dtype=torch.long, device=dev)
+        (state, mets), tstep = wall(torch, lambda: TS.train_step(
+            state, tok[:, :-1], tok[:, 1:], i, cfg, tc, cond=cond))
+        out.append((mets["loss"].item(), mets["tokens"].item(), tstep))
+    print(f"  (p3) {cfg.name} ({MT.param_count(state.params)} parameters), {B}×{n} tokens "
+          f"after {cfg.cond_len} cond positions, remat full: (loss, tokens, s) by step {out}; "
+          f"peak {peak_gb():.2f} GB")
+    check(all(math.isfinite(lo) and tk == B * n for lo, tk, _ in out),
+          f"(p3) {cfg.name}: losses finite, {B * n} tokens counted a step (the cond "
+          f"positions not)")
+    del state, cond
+    fresh_peak()
+    print(f"  (p) {time.perf_counter() - t_all:.1f} s in all")
+
+
 def main() -> int:
     """Run the checks and the main path; return the exit code."""
     # path (o) trains deterministically: cuBLAS reads this when CUDA starts
@@ -1257,6 +1612,35 @@ def main() -> int:
         LO._bq_candidates(G, (LK.static_bq(G),), Dh, torch.float32, torch.float32, dev),
         lambda c: (LK.landmark_attention(qd, ktd, Md, bias, bq=c[0]),),
         lambda: LO.landmark_attend(qd, ktd, Md, bias)))
+    # zamba2-7b's sketched decode (path (p)): head dim 112, one row a
+    # problem (32 heads, no GQA), B·Hkv = 4·32 problems over d_slots = 1024
+    P112, D112 = 4 * 32, 112
+    q1, k1, M1 = randn(P112, 1, D112), randn(P112, Lm, D112), randn(P112, Lm, D112)
+    mass1 = 3 * torch.rand((P112, Lm), generator=gl, device=dev)
+    bias1 = torch.where(mass1 < 0.3, -1e30, torch.log(mass1))
+    dh112 = {}
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        qq, kk1, MM = q1.to(dt), k1.to(dt), M1.to(dt)
+        out = LK.landmark_attention(qq, kk1, MM, bias1)
+        e1, r1, ok1 = close(out, LR.landmark_attention_ref(qq, kk1, MM, bias1), tol)
+        check(ok1 and out.dtype == dt and torch.equal(LK.landmark_attention(qq, kk1, MM, bias1),
+                                                      out),
+              f"landmark_attention {dt} decode at head dim {D112} P={P112} G=1 L={Lm}: "
+              f"max abs {e1:.3e}, /max|plain| {r1:.3e} (tol {tol:g}), a second call the "
+              f"same bits")
+        ms1, dms1 = timed(torch, lambda: LK.landmark_attention(qq, kk1, MM, bias1))
+        pms1, _ = timed(torch, lambda: LR.landmark_attention_ref(qq, kk1, MM, bias1))
+        nb1 = (qq.numel() + kk1.numel() + MM.numel() + out.numel()) * qq.element_size() \
+            + bias1.numel() * 4
+        b1, _ = bound_ms(nb1, 2 * P112 * Lm * 2 * D112)
+        print(f"  landmark_attention {dt} decode, head dim {D112}: {ms1:.4f} ms (device "
+              f"{dms1}), plain {pms1:.4f} ms, bound {b1:.5f} ms, "
+              f"{b1 / dms1 if dms1 else 0:.1%} of it on device time")
+        dh112[str(dt).split(".")[-1]] = dict(max_abs_err=e1, max_rel_err=r1, ms=ms1,
+                                             device_ms=dms1, plain_ms=pms1, bound_ms=b1)
+    rows["landmark_attention"]["decode_dh112"] = dict(shape=f"P={P112} G=1 L={Lm} Dh={D112}",
+                                                      **dh112)
+    del q1, k1, M1, bias1, mass1, qq, kk1, MM
     qf, Mf = randn(P, S_ATT, Dh), randn(P, Lm, Dh)
     out = LK.landmark_attention(qf, ktd, Mf)
     plain = LR.landmark_attention_ref(qf, ktd, Mf)
@@ -2155,6 +2539,24 @@ def main() -> int:
           f"path (o) launched none of the nine kernels: {launches['train']}; launch ranges "
           f"on the device {trace.by_wrapper.get('train')}")
 
+    # ---- 9. path (p): the model families ------------------------------------- #
+    # once, its launch counts from 0: the sketched decode of zamba2-7b's shared
+    # attention launches landmark_attention (head dim 112); nothing else of
+    # the port's kernels is on the path (the reference's MoE, Mamba-2 and cond
+    # code reaches no pallas_call)
+    print(f"\n== path (p): the model families (MoE, Mamba-2, cond); card: {smi} ==")
+    torch.cuda.empty_cache()
+    print(f"  device memory held before (p): {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    reset_counts()
+    trace.on = True
+    families_path(torch, dev, trace, smi, LK)
+    trace.on = False
+    launches["families"] = counts()
+    others = {k: v for k, v in launches["families"].items() if k != "landmark_attention" and v}
+    check(launches["families"]["landmark_attention"] > 0 and not others,
+          f"path (p) launched landmark_attention {launches['families']['landmark_attention']} "
+          f"times and no other kernel ({others})")
+
     # device ms on the paths: pass 3's KRR, engine and serving paths and
     # (n1) summed by wrapper under the profiler, and path (m)'s calls timed
     # one by one ((n2)'s ranks are not profiled)
@@ -2170,8 +2572,8 @@ def main() -> int:
               f"bound {row['bound_ms']:.5f} ms by {row['bound_by']}{sector}, library "
               f"{row['library_ms']}); geometry {row.get('geometry')} by "
               f"{row['geometry_by']}")
-    # launches: the sum over the main paths of pass 2, path (m) and path (n)
-    # (both parts), each counted from 0
+    # launches: the sum over the main paths of pass 2, path (m), path (n)
+    # (both parts), (o) and (p), each counted from 0
     kernels = [dict(name=f.__name__, route="cuda", source=SRC if f in KN.KERNELS else LSRC,
                     launches=sum(c[f.__name__] for c in launches.values()),
                     launches_by_path={p: c[f.__name__] for p, c in launches.items()},

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch._util import resolve_device, tree_map
+from repro_torch._util import resolve_device, tree_leaves, tree_map
 from repro_torch.core.kernel_op import KernelOperator
 from repro_torch.core.krr import SketchedKRR
 from repro_torch.core.sketch import AccumSketch, AccumState, _compute_coef
@@ -78,8 +78,9 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_numpy(tree, cfg, *, device) -> dict:
     """The port's parameters for the reference's ``init_params`` pytree with
     numpy leaves: the same nested names, every tensor carried over in its
-    dtype (stacked over superblocks as in the reference).  The layout is
-    checked against ``cfg``."""
+    dtype (stacked over superblocks as in the reference: MoE expert stacks
+    are (n_sb, E, ·, ·); the router and the Mamba-2 constants stay
+    float32).  The layout is checked against ``cfg``."""
     from repro_torch.models.model import _check_cfg
 
     _check_cfg(cfg)
@@ -89,7 +90,7 @@ def params_from_numpy(tree, cfg, *, device) -> dict:
         raise ValueError(f"embed has shape {tuple(params['embed'].shape)}, config "
                          f"wants {(cfg.vocab_size, cfg.d_model)}")
     for key, blk in params["blocks"].items():
-        if blk["attn"]["wq"].shape[0] != cfg.n_superblocks:
+        if any(t.shape[0] != cfg.n_superblocks for t in tree_leaves(blk)):
             raise ValueError(f"blocks/{key} is not stacked over {cfg.n_superblocks} "
                              "superblocks")
     return params
@@ -117,13 +118,18 @@ def train_state_from_numpy(state, cfg, *, device):
 
 
 def cache_from_numpy(cache, *, device):
-    """The port's ``SketchCache`` or ``KVCache`` for a reference cache with
-    numpy (or array-like) fields ``(k_sum, v_sum, mass)`` or ``(k, v)``."""
+    """The port's ``SketchCache``, ``SSMState`` or ``KVCache`` for a
+    reference layer cache with numpy (or array-like) fields
+    ``(k_sum, v_sum, mass)``, ``(conv, ssm)`` or ``(k, v)``, each in its
+    dtype."""
     from repro_torch.core.sketched_attention import SketchCache
     from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import SSMState
 
     device = resolve_device(device)
     if hasattr(cache, "k_sum"):
         return SketchCache(*(_tensor(x, device) for x in (cache.k_sum, cache.v_sum,
                                                           cache.mass)))
+    if hasattr(cache, "ssm"):
+        return SSMState(_tensor(cache.conv, device), _tensor(cache.ssm, device))
     return KVCache(_tensor(cache.k, device), _tensor(cache.v, device))

@@ -1,18 +1,19 @@
-"""The composable LM for dense attention models (ported from
-``repro.models.model``): ``pattern`` × ``n_superblocks`` blocks run in a
-Python loop.
+"""The composable LM (ported from ``repro.models.model``): ``pattern`` ×
+``n_superblocks`` blocks run in a Python loop.
 
 Params (the reference's names and layout, so the interop map is one-to-one):
   embed      (V, D)            — input embedding (tied output head if cfg.tie)
   lm_head    (V, D) | absent   — untied output head
   final_norm (D,)
   blocks     {pos{i}: subtree with every tensor stacked over n_superblocks}
-  shared     {...}             — parameters for ``attn_shared`` kinds
+  shared     {...}             — parameters for ``attn_shared`` kinds (Zamba2)
 
-Block kinds ``attn``, ``attn_local`` and ``attn_shared`` with the dense FFN
-are ported.  MoE FFNs, Mamba-2 and xLSTM mixers and the audio/vision
-frontends raise ``NotImplementedError`` (ROADMAP queue 1, "the rest of the
-model families").  Decode caches hold one state per layer:
+Block kinds ``attn``, ``attn_local`` and ``attn_shared`` with the dense or
+the MoE FFN, and ``mamba2`` mixers, are ported, as is the conditioning
+input ``cond`` of the audio and vision configs (precomputed embeddings
+placed before the tokens; the frontends are stubs in the reference too).
+xLSTM mixers raise ``NotImplementedError`` (ROADMAP queue 1, "the rest of
+the model families").  Decode caches hold one state per layer:
 ``DecodeCache.blocks`` maps pos{i} to a list over superblocks.  Training
 (``loss_fn``) checkpoints each superblock as ``remat`` says.
 """
@@ -33,6 +34,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sketched_attention import SketchCache
 from repro_torch.models import attention as att
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     PARAM_DTYPE,
     chunked_xent,
@@ -42,33 +45,34 @@ from repro_torch.models.common import (
 )
 
 Params = dict
-ATTN_KINDS = ("attn", "attn_local", "attn_shared")
+PORTED_KINDS = ("attn", "attn_local", "attn_shared", "mamba2")
 
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet (ROADMAP queue 1, \"the "
-        "rest of the model families\": MoE, Mamba-2 and xLSTM blocks and the "
-        "frontends)")
+        "rest of the model families\": the xLSTM blocks)")
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
     for kind in cfg.pattern:
-        if kind not in ATTN_KINDS:
+        if kind not in PORTED_KINDS:
             raise _unported(f"block kind {kind!r}")
-    if cfg.ffn != "dense":
-        raise _unported(f"ffn={cfg.ffn!r}")
-    if cfg.frontend is not None:
-        raise _unported(f"the {cfg.frontend} frontend")
 
 
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
 
-def _init_block(generator, cfg: ModelConfig, dtype) -> Params:
-    return {"attn": att.init_attn(generator, cfg, dtype),
-            "ffn": ffn_mod.init_ffn(generator, cfg.d_model, cfg.d_ff, dtype)}
+def _init_block(generator, kind: str, cfg: ModelConfig, dtype) -> Params:
+    if kind == "mamba2":
+        return {"mixer": ssm_mod.init_mamba2(generator, cfg, dtype)}
+    p = {"attn": att.init_attn(generator, cfg, dtype)}
+    if cfg.ffn == "dense" or kind == "attn_shared":
+        p["ffn"] = ffn_mod.init_ffn(generator, cfg.d_model, cfg.d_ff, dtype)
+    elif cfg.ffn == "moe":
+        p["ffn"] = moe_mod.init_moe(generator, cfg.d_model, cfg.moe, dtype)
+    return p
 
 
 def _stacked(n: int, make) -> Params:
@@ -88,10 +92,10 @@ def _stacked(n: int, make) -> Params:
 def init_params(seed: int | torch.Generator, cfg: ModelConfig, *, device="cuda",
                 dtype=PARAM_DTYPE) -> Params:
     """Parameters from a seed, drawn tensor by tensor on ``device`` (each
-    dense weight in float32, then cast to ``dtype``; norms are float32
-    zeros).  A seed gives the same weights on one kind of device; they are
-    not the reference's weights (``interop.params_from_numpy`` carries
-    those across)."""
+    dense weight in float32, then cast to ``dtype``; norms, the MoE router
+    and the Mamba-2 constants are float32).  A seed gives the same weights
+    on one kind of device; they are not the reference's weights
+    (``interop.params_from_numpy`` carries those across)."""
     _check_cfg(cfg)
     device = resolve_device(device)
     g = seed if isinstance(seed, torch.Generator) else (
@@ -103,16 +107,31 @@ def init_params(seed: int | torch.Generator, cfg: ModelConfig, *, device="cuda",
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(g, (cfg.vocab_size, cfg.d_model), dtype)
     params["blocks"] = {
-        f"pos{i}": _stacked(cfg.n_superblocks, lambda: _init_block(g, cfg, dtype))
+        f"pos{i}": _stacked(cfg.n_superblocks,
+                            lambda kind=kind: _init_block(g, kind, cfg, dtype))
         for i, kind in enumerate(cfg.pattern) if kind != "attn_shared"}
-    params["shared"] = (_init_block(g, cfg, dtype) if "attn_shared" in cfg.pattern
-                        else {})
+    params["shared"] = (_init_block(g, "attn_shared", cfg, dtype)
+                        if "attn_shared" in cfg.pattern else {})
     return params
 
 
 def param_count(params: Params) -> int:
     """Number of parameters."""
     return sum(x.numel() for x in tree_leaves(params))
+
+
+def active_param_count(cfg: ModelConfig, params: Params) -> int:
+    """Active-per-token parameters (MoE: top_k of n_experts)."""
+    total = param_count(params)
+    if cfg.moe is None:
+        return total
+    inactive = 0.0
+    for pos in params["blocks"].values():
+        ffn = pos.get("ffn", {})
+        for n in ("wi_gate", "wi_up", "wo"):
+            if n in ffn and ffn[n].ndim == 4:      # (n_sb, E, ·, ·)
+                inactive += ffn[n].numel() * (1 - cfg.moe.top_k / cfg.moe.n_experts)
+    return int(total - inactive)
 
 
 def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -122,8 +141,32 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     return h * torch.sqrt(torch.tensor(cfg.d_model, dtype=h.dtype, device=h.device))
 
 
-def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return h + ffn_mod.ffn_forward(p["ffn"], rmsnorm(h, p["ffn"]["norm"], cfg.norm_eps))
+def _ffn(kind: str, p: Params, h: torch.Tensor, cfg: ModelConfig
+         ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """h plus the block's FFN of rmsnorm(h), if it has one: (h, the MoE aux
+    loss or None).  ``attn_shared`` keeps the dense FFN in an MoE model, as
+    the reference."""
+    if "ffn" not in p:
+        return h, None
+    x = rmsnorm(h, p["ffn"]["norm"], cfg.norm_eps)
+    if cfg.ffn == "moe" and kind != "attn_shared":
+        y, metrics = moe_mod.moe_forward(p["ffn"], x, cfg.moe)
+        return h + y, metrics.aux_loss
+    return h + ffn_mod.ffn_forward(p["ffn"], x), None
+
+
+def _cond_input(params: Params, tokens: torch.Tensor, cfg: ModelConfig, cond
+                ) -> torch.Tensor:
+    """Token embeddings with ``cond`` (B, Sc, D), cast to their dtype, placed
+    before them: (B, Sc + S, D)."""
+    h = _embed(params, tokens, cfg)
+    if cond is None:
+        return h
+    B, _, D = h.shape
+    if cond.ndim != 3 or cond.shape[0] != B or cond.shape[2] != D:
+        raise ValueError(f"cond must be (batch {B}, cond_len, d_model {D}) embeddings, "
+                         f"got {tuple(cond.shape)}")
+    return torch.cat([cond.to(h.dtype), h], dim=1)
 
 
 # --------------------------------------------------------------------------- #
@@ -166,33 +209,43 @@ def _remat_call(policy: str, fn, *args):
     raise ValueError(f"remat must be 'none', 'dots' or 'full', got {policy!r}")
 
 
-def _superblock(h: torch.Tensor, sb: Params, shared: Params, cfg: ModelConfig, sin, cos,
-                q_chunk: int) -> torch.Tensor:
+def _superblock(h: torch.Tensor, aux: torch.Tensor, sb: Params, shared: Params,
+                cfg: ModelConfig, sin, cos, q_chunk: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     for j, kind in enumerate(cfg.pattern):
         p = shared if kind == "attn_shared" else sb[f"pos{j}"]
+        if kind == "mamba2":
+            x = rmsnorm(h, p["mixer"]["norm"], cfg.norm_eps)
+            h = h + ssm_mod.mamba2_forward(p["mixer"], x, cfg)
+            continue
         window = cfg.window if kind == "attn_local" else None
         h = h + att.attn_forward(p["attn"], rmsnorm(h, p["attn"]["norm"], cfg.norm_eps),
                                  cfg, sin, cos, window=window, q_chunk=q_chunk)
-        h = _ffn(p, h, cfg)
-    return h
+        h, a = _ffn(kind, p, h, cfg)
+        if a is not None:
+            aux = aux + a
+    return h, aux
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             cond: torch.Tensor | None = None, q_chunk: int = 512, remat: str = "dots"
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) → (h_final (B, S, D), aux_loss).  No dense block has an
-    auxiliary loss, so aux is 0.  ``remat`` ("none", "dots" or "full") is
-    the activation checkpointing of each superblock (``_remat_call``)."""
+    """tokens (B, S) [+ cond (B, Sc, D)] → (h_final (B, S_tot, D), aux_loss):
+    ``cond`` embeddings come first, S_tot = Sc + S.  aux is the sum of every
+    MoE layer's load-balancing loss (0 without MoE).  ``remat`` ("none",
+    "dots" or "full") is the activation checkpointing of each superblock
+    (``_remat_call``)."""
     _check_cfg(cfg)
-    if cond is not None:
-        raise _unported("conditioning input (cond)")
-    h = _embed(params, tokens, cfg)
-    S = h.shape[1]
-    sin, cos = rope_table(torch.arange(S, device=h.device), cfg.head_dim, cfg.rope_theta)
+    h = _cond_input(params, tokens, cfg, cond)
+    S_tot = h.shape[1]
+    sin, cos = rope_table(torch.arange(S_tot, device=h.device), cfg.head_dim,
+                          cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for sb in _unstack(params["blocks"], cfg.n_superblocks):
-        h = _remat_call(remat, _superblock, h, sb, params["shared"], cfg, sin, cos, q_chunk)
+        h, aux = _remat_call(remat, _superblock, h, aux, sb, params["shared"], cfg, sin,
+                             cos, q_chunk)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def output_embedding(params: Params) -> torch.Tensor:
@@ -204,11 +257,19 @@ def loss_fn(params: Params, tokens: torch.Tensor, labels: torch.Tensor, cfg: Mod
             cond: torch.Tensor | None = None, q_chunk: int = 512, remat: str = "dots"
             ) -> tuple[torch.Tensor, dict]:
     """Mean next-token cross-entropy of ``tokens`` (B, S) against ``labels``
-    (B, S) plus the weighted auxiliary loss.  Returns (loss, {"xent", "aux",
-    "tokens"}); every value is a float32 tensor.  ``cond`` raises, as in
-    ``forward``."""
+    (B, S) plus the weighted auxiliary loss.  With ``cond`` (B, Sc, D) the
+    loss counts only the token positions (the Sc conditioning positions are
+    masked, their labels padded with zeros).  Returns (loss, {"xent", "aux",
+    "tokens"}); every value is a float32 tensor."""
     h, aux = forward(params, tokens, cfg, cond=cond, q_chunk=q_chunk, remat=remat)
-    mask = torch.ones(tokens.shape, dtype=torch.float32, device=h.device)
+    B, S = tokens.shape
+    mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    if cond is not None:
+        Sc = cond.shape[1]
+        mask = torch.cat([torch.zeros((B, Sc), dtype=torch.float32, device=h.device),
+                          mask], dim=1)
+        labels = torch.cat([torch.zeros((B, Sc), dtype=labels.dtype,
+                                        device=labels.device), labels], dim=1)
     xent, count = chunked_xent(h, output_embedding(params), labels, mask)
     aux_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
     return xent + aux_w * aux, {"xent": xent, "aux": aux, "tokens": count}
@@ -228,9 +289,10 @@ def _head_logits(h_last: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            q_chunk: int = 512) -> torch.Tensor:
-    """Prefill pass → last-position logits (B, V) float32."""
-    h, _ = forward(params, tokens, cfg, q_chunk=q_chunk, remat="none")
+            cond: torch.Tensor | None = None, q_chunk: int = 512) -> torch.Tensor:
+    """Prefill pass (``cond`` embeddings first, as in ``forward``) →
+    last-position logits (B, V) float32."""
+    h, _ = forward(params, tokens, cfg, cond=cond, q_chunk=q_chunk, remat="none")
     return _head_logits(h[:, -1], output_embedding(params))
 
 
@@ -239,11 +301,14 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 # --------------------------------------------------------------------------- #
 
 class DecodeCache(NamedTuple):
-    """Per-layer decode states (KVCache or SketchCache) of every block."""
+    """Per-layer decode states (KVCache, SketchCache or SSMState) of every
+    block."""
     blocks: dict        # {pos{i}: [state of superblock 0, 1, …]}
 
 
 def _init_block_cache(kind, cfg: ModelConfig, batch, max_len, dtype, use_sketch, device):
+    if kind == "mamba2":
+        return ssm_mod.init_ssm_state(cfg, batch, dtype, device=device)
     if kind == "attn_local":
         return att.init_kv_cache(cfg, batch, min(max_len, cfg.window), dtype,
                                  device=device)
@@ -265,6 +330,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def _block_decode(kind, p, h, state, cfg, sin_t, cos_t, pos: int, slots):
+    if kind == "mamba2":
+        x = rmsnorm(h, p["mixer"]["norm"], cfg.norm_eps)
+        y, state = ssm_mod.mamba2_decode(p["mixer"], x, state, cfg)
+        return h + y, state
     x = rmsnorm(h, p["attn"]["norm"], cfg.norm_eps)
     if isinstance(state, SketchCache):
         y, state = att.attn_decode_sketched(p["attn"], x, state, cfg, sin_t, cos_t, slots)
@@ -274,10 +343,16 @@ def _block_decode(kind, p, h, state, cfg, sin_t, cos_t, pos: int, slots):
                                    write_pos=pos % state.k.shape[1])
     else:
         y, state = att.attn_decode(p["attn"], x, state, pos, cfg, sin_t, cos_t)
-    return _ffn(p, h + y, cfg), state
+    return _ffn(kind, p, h + y, cfg)[0], state
 
 
 def _block_prefill(kind, p, h, state, cfg, sin, cos, slot_table, q_chunk):
+    if kind == "mamba2":
+        # the recurrent mixer has a per-token transition only: its token scan
+        # (the state the sequential decode reaches; ssm.mamba2_prefill)
+        x = rmsnorm(h, p["mixer"]["norm"], cfg.norm_eps)
+        y, state = ssm_mod.mamba2_prefill(p["mixer"], x, state, cfg)
+        return h + y, state
     x = rmsnorm(h, p["attn"]["norm"], cfg.norm_eps)
     if isinstance(state, SketchCache):
         y, state = att.attn_prefill_sketched(p["attn"], x, state, cfg, sin, cos, slot_table)
@@ -285,7 +360,7 @@ def _block_prefill(kind, p, h, state, cfg, sin, cos, slot_table, q_chunk):
         window = cfg.window if kind == "attn_local" else None
         y, state = att.attn_prefill(p["attn"], x, state, cfg, sin, cos, window=window,
                                     q_chunk=q_chunk)
-    return _ffn(p, h + y, cfg), state
+    return _ffn(kind, p, h + y, cfg)[0], state
 
 
 def _run_blocks(params, cache: DecodeCache, h, cfg: ModelConfig, step

@@ -64,7 +64,9 @@ def _value_and_grad(params, tokens, labels, cond, cfg: ModelConfig, tc: TrainCon
     live = tree_map(lambda _: next(it), params)
     loss, mets = loss_fn(live, tokens, labels, cfg, cond=cond, q_chunk=tc.q_chunk,
                          remat=tc.remat)
-    grads = torch.autograd.grad(loss, leaves)
+    # a leaf the loss does not reach (Arctic's dense residual keeps its FFN's
+    # norm, unused) gets a zero gradient, as in the reference
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
     it = iter(grads)
     return loss.detach(), {k: v.detach() for k, v in mets.items()}, tree_map(
         lambda _: next(it), params)

@@ -392,6 +392,33 @@ def test_cuda_landmark_attention_matches_plain(cuda_device, P, S, L, Dh, Dv, dty
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_landmark_decode_at_head_dim_112(cuda_device, dtype):
+    """zamba2-7b's shared attention (32 heads of 112, no GQA) is the first
+    serving path whose decode sweep runs at a head dim other than 128: its
+    loads of 4 elements stop at 112, inside the 128-wide chunk.  B·Hkv =
+    4·32 problems of G = 1 row over d_slots = 1024 slots with a decode's
+    bias lane, through the kernel and through ``landmark_attend`` (the
+    sketched decode's entry point); float32 at 1e-5, bfloat16 at 2e-2."""
+    g = torch.Generator().manual_seed(112)
+    P, S, L, Dh = 128, 1, 1024, 112
+    q, kt = _randn(g, (P, S, Dh), cuda_device, dtype), _randn(g, (P, L, Dh), cuda_device, dtype)
+    M = _randn(g, (P, L, Dh), cuda_device, dtype)
+    mass = torch.rand((P, L), generator=g) * 3
+    bias = torch.where(mass < 0.3, -1e30, torch.log(mass)).to(cuda_device)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    before = LK.landmark_attention.launches
+    out = LK.landmark_attention(q, kt, M, bias)
+    plain = LR.landmark_attention_ref(q, kt, M, bias)
+    assert out.dtype == dtype and out.isfinite().all()
+    _close(out, plain, tol)
+    _close(LO.landmark_attend(q, kt, M, bias), plain, tol)
+    assert LK.landmark_attention.launches == before + 2
+    assert torch.equal(LK.landmark_attention(q, kt, M, bias), out)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P,L,S,Dh,Dv,nv,lv", [(3, 50, 300, 16, 24, 270, 45),
                                                (2, 130, 2049, 64, 64, 2049, 130),
                                                (1, 7, 5, 8, 5, 3, 2),

@@ -170,8 +170,86 @@ def test_cache_from_numpy_round_trip(built):
     assert tuple(kv.k.shape) == (2, 8, 2, 16)
 
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "zamba2-7b", "xlstm-125m",
-                                  "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", ["xlstm-125m"])
 def test_unported_blocks_raise_naming_the_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="the rest of the model families"):
         MT.init_params(0, reduced_t(ARCHS_T[arch]), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b", "zamba2-7b",
+                                  "musicgen-medium", "qwen2-vl-2b"])
+def test_init_params_builds_the_ported_families(arch):
+    """The port's own draw of each family has the reference's names, shapes,
+    stacking and dtypes: MoE expert stacks (n_sb, E, ·, ·) beside a float32
+    router, Mamba-2 mixers with float32 A_log, D and dt_bias, the shared
+    attention block, and the frontends' plain backbones."""
+    cj, ct = reduced(ARCHS[arch]), reduced_t(ARCHS_T[arch])
+    pj = MJ.init_params(KEY, cj)
+    pt = MT.init_params(0, ct, device="cpu")
+    flat_j = {jax.tree_util.keystr(k): v for k, v in
+              jax.tree_util.tree_flatten_with_path(pj)[0]}
+    flat_t = {jax.tree_util.keystr(k): v for k, v in
+              jax.tree_util.tree_flatten_with_path(pt)[0]}
+    assert flat_t.keys() == flat_j.keys()
+    for k, v in flat_t.items():
+        assert tuple(v.shape) == flat_j[k].shape, k
+        assert str(v.dtype).split(".")[-1] == str(flat_j[k].dtype), k
+    assert MT.param_count(pt) == MJ.param_count(pj)
+
+
+# --------------------------------------------------------------------------- #
+# the conditioning input: reduced musicgen-medium (audio) and qwen2-vl-2b
+# (vision, tied head), cond_len 8 precomputed embeddings before the tokens
+# --------------------------------------------------------------------------- #
+
+COND_ARCHS = ["musicgen-medium", "qwen2-vl-2b"]
+
+
+@pytest.mark.parametrize("arch", COND_ARCHS)
+def test_cond_forward_and_prefill_match_reference(arch):
+    from torch_family_parity import check_forward_and_prefill
+
+    check_forward_and_prefill(arch)
+
+
+@pytest.mark.parametrize("use_sketch", [False, True])
+@pytest.mark.parametrize("arch", COND_ARCHS)
+def test_cond_models_prefill_with_cache_and_decode_match_reference(arch, use_sketch):
+    """Serving takes tokens only, in the reference too."""
+    from torch_family_parity import check_cache_and_decode
+
+    check_cache_and_decode(arch, use_sketch)
+
+
+@pytest.mark.parametrize("arch", COND_ARCHS)
+def test_cond_loss_and_gradients_match_reference(arch):
+    """The loss masks the cond positions (count = B·S) and pads the labels."""
+    from torch_family_parity import check_loss_and_gradients
+
+    check_loss_and_gradients(arch)
+
+
+@pytest.mark.parametrize("arch", COND_ARCHS)
+def test_cond_models_decode_matches_forward(arch):
+    from torch_family_parity import check_decode_matches_forward
+
+    check_decode_matches_forward(arch)
+
+
+def test_cond_is_sliced_with_the_microbatches():
+    """train_step's microbatches slice cond with the tokens: two
+    microbatches give one batch's loss and gradients (float32, 1e-5)."""
+    from torch_family_parity import build, inputs
+
+    from repro_torch._util import tree_leaves
+    from repro_torch.train import step as ST
+
+    _, ct, _, pt = build("musicgen-medium")
+    tok, lab, cond = inputs(ct, B=4)
+    args = (pt, torch.from_numpy(tok), torch.from_numpy(lab), torch.from_numpy(cond), ct)
+    l1, m1, g1 = ST._grads(*args, ST.TrainConfig(remat="none", q_chunk=16))
+    l2, _, g2 = ST._grads(*args, ST.TrainConfig(remat="none", q_chunk=16, n_micro=2))
+    assert m1["tokens"].item() == tok.size
+    _close(l2.item(), l1.item(), 1e-5)
+    for a, b in zip(tree_leaves(g2), tree_leaves(g1)):
+        _close(a.numpy(), b.float().numpy(), 1e-5)

@@ -158,11 +158,15 @@ def test_remat_policies_are_bitwise_equal(loss_case):
 
 
 def test_loss_fn_refuses_conditioning_input():
+    """A conditioning input must be (batch, cond_len, d_model) embeddings:
+    another width or batch is refused by name (a well-formed one is held
+    against the reference in tests/test_torch_models.py)."""
     _, ct = _cfgs("stablelm-3b")
     pt = MT.init_params(0, ct, device="cpu")
     tok = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="conditioning"):
-        MT.loss_fn(pt, tok, tok, ct, cond=torch.zeros((1, 2, ct.d_model)))
+    for bad in (torch.zeros((1, 2, ct.d_model + 1)), torch.zeros((2, 2, ct.d_model))):
+        with pytest.raises(ValueError, match="cond"):
+            MT.loss_fn(pt, tok, tok, ct, cond=bad)
 
 
 # --------------------------------------------------------------------------- #

@@ -52,7 +52,10 @@ from repro_torch.train import step as ST  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 2
-SPAWN_TIMEOUT = 120
+# a guard against a hung rank, not a speed bound: the ranks are single-threaded
+# and starve beside the suite's other workers (the two training ranks take 13
+# s alone and did not finish in 180 s beside six CPU-bound processes)
+SPAWN_TIMEOUT = 600
 CFG = reduced(ARCHS["stablelm-3b"])
 COMPRESS = C.CompressConfig(ratio=0.25, m=4, min_rows=256)     # embed and lm_head
 DC = DataConfig(vocab_size=CFG.vocab_size, seq_len=32, global_batch=4)
