@@ -15,7 +15,7 @@
    the IEEE-FMA bound and of the 3×TF32 bound (``bound_tc_ms``, ``rate``);
    the decode sweep its share of the byte bound, its TB/s, the device
    operations a call (one launch), float32 and bfloat16, and at zamba2's
-   head dim of 112; matfree_apply its
+   head dim of 112 beside SDPA's time there; matfree_apply its
    share of its byte, FP32 and SFU bounds (the SFU's 16 results a clock an
    SM at ``clocks.max.sm``); the column gathers their share of the byte
    bound and of the sector bound (the distinct 32-byte sectors of the
@@ -111,6 +111,29 @@
         memory, and a second run bitwise (the MoE combine is a gather);
    (p3) qwen2-vl-2b prefilled after 1024 cond positions, and
         musicgen-medium trained for two steps after 256 cond positions.
+   Then path (q), xLSTM (``xlstm_path``), once, its launch counts from 0
+   (the reference's xLSTM reaches no ``pallas_call``, so no kernel may
+   launch):
+   (q1) xlstm-125m at full width and depth (12 layers alternating mLSTM
+        and sLSTM, d_model 768, 4 heads of 192; 77,613,336 bfloat16
+        parameters from seed 0), batch 4, 1024-token prompts, 32 greedy
+        tokens: prefill ms (the token scan), decode tokens/s (the engine's
+        decode loop timed apart), the cache bytes (the recurrent states),
+        one decode step's device ms against its wall ms and its aten ops and
+        host syncs (``analysis.trace_report``); the sketched engine's
+        tokens ≡ the exact engine's, and a killed request resumed bitwise;
+   (q2) the sLSTM ``autograd.Function`` against autograd through the token
+        loop (L = 64, B = 2, 1e-4 relative) and the chunkwise mLSTM against
+        the sequential recurrence (L = 256, 2e-4), float32 at full width;
+   (q3) 3 training steps of 4 × 512 tokens at ``remat="full"``, lr 1e-4:
+        step ms, tokens/s, peak memory, and the loss of the first batch
+        falling.
+   Then path (r), the trace contracts (``contracts_path``): every contract
+   of ``repro_torch/analysis/contracts.toml`` on the card, one line each
+   (each probe warmed up, then recorded under
+   ``torch.cuda.set_sync_debug_mode("error")`` where it allows no host
+   sync; the launches equal to the dispatches; the device memory's rise
+   within the budget), and the RNG sweep.
 4. Prints one ``{"kernels": [...]}`` line (with each kernel's device ms
    summed on the paths of pass 3, (m), (n1) and (p1)), the card line, and as the
    last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -209,6 +232,13 @@ AUD_ARCH, AUD_BATCH, AUD_SEQ, AUD_STEPS = "musicgen-medium", 2, 2048, 2
 # the reference's own bound on recurrent logits computed two ways
 # (tests/test_archs_smoke.py:67)
 RECURRENT_TOL = 0.05
+# path (q), xLSTM: xlstm-125m at full width and depth (batch 4, 1024-token
+# prompts, 32 greedy tokens; the sketched and the kill-and-resume checks on
+# 64-token prompts), its plain-form checks at L = 64 (sLSTM) and 256
+# (mLSTM), and 3 training steps of 4 × 512 tokens
+XL_ARCH, XL_BATCH, XL_PROMPT, XL_NEW, XL_RESUME = "xlstm-125m", 4, 1024, 32, 64
+XL_SLSTM_L, XL_MLSTM_L = 64, 256
+XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_TRAIN_STEPS = 4, 512, 3
 
 SRC = "src/repro_torch/kernels/accum_apply/csrc/accum_apply.cu"
 LSRC = "src/repro_torch/kernels/landmark_attention/csrc/landmark_attention.cu"
@@ -894,6 +924,10 @@ def reckoned_params(cfg) -> int:
             hs, ch = di // s.head_dim, di + 2 * s.d_state
             n += cfg.n_superblocks * (D * (2 * di + 2 * s.d_state + hs) + s.conv_width * ch
                                       + ch + 3 * hs + di + di * D + D)
+        elif kind in ("mlstm", "slstm"):
+            HD = H * Dh
+            gates = 2 * D * H + H if kind == "mlstm" else 4 * H * Dh * Dh + HD
+            n += cfg.n_superblocks * (4 * D * HD + HD * D + D + gates)
         elif kind != "attn_shared":
             n += cfg.n_superblocks * (attn + ffn)
     if "attn_shared" in cfg.pattern:
@@ -1189,6 +1223,228 @@ def families_path(torch, dev, trace, smi: str, LK, *, hyb_cfg=None, moe_cfg=None
     del state, cond
     fresh_peak()
     print(f"  (p) {time.perf_counter() - t_all:.1f} s in all")
+
+
+def xlstm_path(torch, dev, smi: str, *, cfg=None, serve=(XL_BATCH, XL_PROMPT, XL_NEW),
+               resume=XL_RESUME, train=(XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_TRAIN_STEPS),
+               check_len=(XL_SLSTM_L, XL_MLSTM_L)) -> None:
+    """Path (q), the xLSTM blocks (``models/xlstm.py``) in ``cfg``
+    (xlstm-125m) at full width and depth, weights from seed 0:
+
+    (q1) served through ``Engine.generate`` (batch × prompt, ``new`` greedy
+    tokens): prefill ms (the token scan), decode tokens/s, the cache bytes
+    (the recurrent states); one decode step's device ms against its wall ms
+    under the profiler, and its aten ops and host syncs from
+    ``analysis.trace_report``; the sketched engine's tokens ≡ the exact
+    engine's (no attention layer), and a request killed by the fault plan
+    and resumed, bitwise.
+    (q2) held against the plain forms on the card at full width, float32:
+    the sLSTM ``autograd.Function`` against autograd through the token loop
+    (L, B = ``check_len[0]``, 2; 1e-4 relative, the reference's bound) and
+    the chunkwise mLSTM against the sequential recurrence (L =
+    ``check_len[1]``; 2e-4).
+    (q3) ``train[2]`` training steps of batch × seq tokens at
+    ``remat="full"``, lr 1e-4: step ms, tokens/s, peak memory, the loss
+    falling."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch._util import tree_leaves
+    from repro_torch.analysis import trace_report
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.models import model as MT
+    from repro_torch.models import xlstm as XT
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.resilience import faults
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.train import step as TS
+
+    cuda = dev.type == "cuda"
+    t_all = time.perf_counter()
+    cfg = cfg or get_config(XL_ARCH)
+    B, L, new = serve
+
+    def nbytes(tree) -> int:
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+                   if isinstance(x, torch.Tensor))
+
+    def fresh_peak():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+
+    # ---- (q1) serving ---------------------------------------------------------
+    params, t_init = wall(torch, lambda: MT.init_params(0, cfg, device=dev))
+    n_params = MT.param_count(params)
+    check(n_params == reckoned_params(cfg),
+          f"(q1) {cfg.name}: {n_params} parameters, reckoned {reckoned_params(cfg)} "
+          f"({nbytes(params) / 1e9:.3f} GB; drawn in {t_init:.1f} s)")
+    g = torch.Generator().manual_seed(31)
+    prompts = torch.randint(0, cfg.vocab_size, (B, L), generator=g).numpy().astype(np.int32)
+    eng = Engine(cfg, params, ServeConfig(max_len=L + new))
+    eng.prefill_tokens(eng.new_cache(B), prompts[:, :16])            # warm-up, untimed
+    fresh_peak()
+    # the engine's two phases timed apart, then the whole request
+    (cache, logits), tpre = wall(torch, lambda: eng.prefill_tokens(eng.new_cache(B), prompts))
+    tok0 = torch.argmax(logits, dim=-1)
+    (dec_toks, cache), tdec = wall(torch, lambda: eng._decode(cache, tok0, L, new - 1))
+    (toks, cache), tgen = wall(torch, lambda: eng.generate(prompts, new))
+    print(f"  (q1) {cfg.name}: prefill {B}×{L} tokens {tpre * 1e3:.1f} ms (the token scan); "
+          f"decode {new - 1} steps {tdec * 1e3:.1f} ms = {B * (new - 1) / tdec:.1f} tokens/s; "
+          f"generate {new} tokens {tgen * 1e3:.1f} ms; cache {nbytes(cache) / 1e6:.3f} MB (the "
+          f"recurrent states); peak {peak_gb():.2f} GB; card: {smi}")
+    check(toks.shape == (B, new) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+          and bool(logits.isfinite().all()) and (toks[:, 1:] == dec_toks).all(),
+          f"(q1) {B}×{new} tokens in the vocabulary, prefill logits finite, generate's "
+          "tokens the timed phases' bitwise")
+    want = sum(t.numel() * t.element_size() for st in (
+        XT.init_mlstm_state(cfg, B, device=dev), XT.init_slstm_state(cfg, B, device=dev))
+        for t in st) * cfg.n_superblocks
+    check(nbytes(cache) == want, f"(q1) cache {nbytes(cache)} B, reckoned {want} B")
+    # one decode step: device ms against wall ms, its aten ops and host syncs
+    pos, last = L + new - 1, torch.as_tensor(toks[:, -1], dtype=torch.long, device=dev)
+    step = lambda: MT.decode_step(params, cache, last, pos, cfg)     # noqa: E731
+    step()
+    rep = trace_report(step)
+    if cuda:
+        wms, dms, top, _ = profiled(torch, step)
+        (_, _), tstep = wall(torch, step)
+        print(f"  (q1) one decode step: {tstep * 1e3:.2f} ms wall ({wms:.2f} under the "
+              f"profiler), device {dms:.3f} ms ({1 - dms / (tstep * 1e3):.1%} idle); "
+              f"{rep.eqn_count} aten ops, {len(rep.host_syncs)} host syncs, "
+              f"{rep.kernel_dispatches} kernel dispatches, {rep.flops / 1e9:.2f} GFLOP; "
+              f"top kernels {top}")
+    check(not rep.host_syncs and rep.kernel_dispatches == 0,
+          f"(q1) a decode step: host syncs {rep.host_syncs}, kernel dispatches "
+          f"{rep.kernel_dispatches} (none expected)")
+    del cache
+    # the sketched engine: no attention layer, so the exact engine's tokens
+    short = prompts[:, :resume]
+    kw = dict(max_len=resume + 12, temperature=0.7, seed=3)
+    ref_toks, _ = Engine(cfg, params, ServeConfig(**kw)).generate(short, 12)
+    sk_toks, _ = Engine(cfg, params, ServeConfig(use_sketch=True, **kw)).generate(short, 12)
+    check(bool((ref_toks == sk_toks).all()),
+          f"(q1) use_sketch=True gives the exact engine's {B}×12 sampled tokens bitwise")
+    with tempfile.TemporaryDirectory() as ckdir:
+        os.environ[faults.ENV_PLAN] = '{"decode.step": {"action": "kill", "at": 2}}'
+        faults.reset()
+        killed = False
+        try:
+            Engine(cfg, params, ServeConfig(ckpt_dir=ckdir, ckpt_every=4, **kw)).generate(
+                short, 12, request_id="r")
+        except faults.DeviceLost:
+            killed = True
+        finally:
+            del os.environ[faults.ENV_PLAN]
+            faults.reset()
+        eng = Engine(cfg, params, ServeConfig(ckpt_dir=ckdir, ckpt_every=4, **kw))
+        rtoks, _ = eng.generate(short, 12, request_id="r")
+    check(killed and bool((rtoks == ref_toks).all()) and eng.health.count("ckpt.resume") == 1,
+          f"(q1) a {resume}-token request killed by the decode.step plan and resumed: the "
+          f"same 12 tokens bitwise ({'killed' if killed else 'NOT killed'})")
+
+    # ---- (q2) the plain forms, float32 at full width -------------------------
+    f32 = lambda tree: {k: v.float() for k, v in tree.items()}      # noqa: E731
+    pm = f32(MT._unstack(params["blocks"]["pos0"], cfg.n_superblocks)[0]["mixer"])
+    ps = f32(MT._unstack(params["blocks"]["pos1"], cfg.n_superblocks)[0]["mixer"])
+    Ls, Lm = check_len
+    gq = torch.Generator().manual_seed(32)
+    HD = cfg.n_heads * cfg.head_dim
+    xs = [torch.randn((Ls, 2, HD), generator=gq).to(dev) for _ in range(4)]
+    gy = torch.randn((Ls, 2, cfg.n_heads, cfg.head_dim), generator=gq).to(dev)
+    R = [ps[k] for k in ("rz", "ri", "rf", "rog")]
+
+    def grads(fn):
+        Rt = [r.clone().requires_grad_() for r in R]
+        fb = ps["f_bias"].clone().requires_grad_()
+        xt = [x.clone().requires_grad_() for x in xs]
+        hs = fn(Rt, fb, *xt)
+        (hs * gy).sum().backward()
+        return [hs.detach()] + [t.grad for t in Rt + [fb] + xt]
+
+    (got, tf), (want_g, tp) = (wall(torch, lambda fn=fn: grads(fn))
+                               for fn in (XT.slstm_scan, XT.slstm_scan_plain))
+    rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(got, want_g))
+    check(rel < 1e-4, f"(q2) the sLSTM Function against autograd through the token loop, "
+                      f"L={Ls} B=2 H={cfg.n_heads} Dh={cfg.head_dim} float32: outputs and all 9 "
+                      f"gradients within {rel:.2e} relative (tol 1e-4); {tf * 1e3:.1f} ms "
+                      f"against {tp * 1e3:.1f} ms")
+    x = torch.randn((2, Lm, cfg.d_model), generator=gq).to(dev)
+    ych, tch = wall(torch, lambda: XT.mlstm_forward(pm, x, cfg))
+    ysq, tsq = wall(torch, lambda: XT._mlstm_forward_seq(pm, x, cfg))
+    ea, er, ok = close(ych, ysq, 2e-4)
+    check(ok, f"(q2) the chunkwise mLSTM (chunk 64) against the sequential recurrence, "
+              f"L={Lm} float32: max abs {ea:.3e}, /max|plain| {er:.3e} (tol 2e-4); "
+              f"{tch * 1e3:.1f} ms against {tsq * 1e3:.1f} ms")
+    del pm, ps, xs, gy, R, got, want_g, x, ych, ysq
+
+    # ---- (q3) training ---------------------------------------------------------
+    tb, ts, n_steps = train
+    tc = TS.TrainConfig(optimizer=AdamWConfig(lr_peak=1e-4, warmup_steps=0,
+                                              total_steps=n_steps), remat="full")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=ts, global_batch=tb)
+    del eng
+    fresh_peak()
+    state = TS.init_train_state(params, tc)
+    del params
+    losses, ms = [], []
+    for i in range(n_steps):
+        tok, lab = global_batch(dc, i, device=dev)
+        t0 = time.perf_counter()
+        state, mets = TS.train_step(state, tok, lab, i, cfg, tc)
+        losses.append(mets["loss"].item())            # ends in a synchronization
+        ms.append((time.perf_counter() - t0) * 1e3)
+    # the first batch again, under the trained parameters: the step losses
+    # are of other batches, whose spread hides a few steps' fall
+    tok, lab = global_batch(dc, 0, device=dev)
+    with torch.no_grad():
+        after = MT.loss_fn(state.params, tok, lab, cfg, remat="none")[0].item()
+    print(f"  (q3) {cfg.name} training {tb}×{ts} tokens, remat full, lr 1e-4: losses "
+          f"{[round(v, 4) for v in losses]}, batch 0 after the steps {after:.4f}; step ms "
+          f"{[round(v, 1) for v in ms]} ({tb * ts / (ms[-1] / 1e3):.1f} tokens/s at the last); "
+          f"peak {peak_gb():.2f} GB; card: {smi}")
+    check(all(np.isfinite(losses)) and after < losses[0],
+          f"(q3) the loss of batch 0 falls over {n_steps} steps: {losses[0]:.4f} -> "
+          f"{after:.4f}")
+    del state
+    fresh_peak()
+    print(f"  (q) {time.perf_counter() - t_all:.1f} s")
+
+
+def contracts_path(torch, dev, smi: str) -> list:
+    """Path (r), the trace contracts (``repro_torch.analysis``) on the card:
+    ``run_check(device="cuda")``, one line a contract.  Each probe runs
+    once to warm up, then recorded with autotuning off, under
+    ``torch.cuda.set_sync_debug_mode("error")`` where its contract allows
+    no host sync; the kernels' launches must equal the dispatches × each
+    router's launches, and the device memory's rise stay within the
+    budget expression.  The RNG sweep must find every generator site
+    registered.  Returns the contracts' results."""
+    from repro_torch.analysis import contracts as CT
+
+    t0 = time.perf_counter()
+    results, sweep, _ = CT.run_check(device=dev.type)
+    for res in results:
+        r = res.report
+        line = (f"peak {res.measured_peak_bytes} B, dispatches {r.get('kernel_dispatches')}, "
+                f"launches {r.get('kernel_launches')}, host syncs {r.get('host_syncs')}, "
+                f"aten ops {r.get('eqn_count')}, memory rise {r.get('memory_rise_bytes')} B, "
+                f"donation {r.get('donation_verified')}"
+                if res.status != "skipped" else r.get("reason", ""))
+        check(res.status in ("pass", "skipped"),
+              f"(r) {res.name}: {res.status}; {line}; {'; '.join(res.violations)}")
+    check(not sweep, f"(r) the RNG sweep: {len(sweep)} unregistered site(s) "
+                     f"{[(s.path, s.lineno) for s in sweep]}")
+    print(f"  (r) {len(results)} contracts, "
+          f"{sum(r.status == 'pass' for r in results)} passed, "
+          f"{sum(r.status == 'skipped' for r in results)} skipped; "
+          f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+    return results
 
 
 def main() -> int:
@@ -1630,14 +1886,18 @@ def main() -> int:
               f"same bits")
         ms1, dms1 = timed(torch, lambda: LK.landmark_attention(qq, kk1, MM, bias1))
         pms1, _ = timed(torch, lambda: LR.landmark_attention_ref(qq, kk1, MM, bias1))
+        # the library call: SDPA with the bias as the mask, in the inputs' dtype
+        mask1 = bias1[:, None, :].to(dt)
+        lms1, ldms1 = timed(torch, lambda: sdpa(qq, kk1, MM, attn_mask=mask1))
         nb1 = (qq.numel() + kk1.numel() + MM.numel() + out.numel()) * qq.element_size() \
             + bias1.numel() * 4
         b1, _ = bound_ms(nb1, 2 * P112 * Lm * 2 * D112)
         print(f"  landmark_attention {dt} decode, head dim {D112}: {ms1:.4f} ms (device "
-              f"{dms1}), plain {pms1:.4f} ms, bound {b1:.5f} ms, "
-              f"{b1 / dms1 if dms1 else 0:.1%} of it on device time")
+              f"{dms1}), plain {pms1:.4f} ms, SDPA {lms1:.4f} ms (device {ldms1}), bound "
+              f"{b1:.5f} ms, {b1 / dms1 if dms1 else 0:.1%} of it on device time")
         dh112[str(dt).split(".")[-1]] = dict(max_abs_err=e1, max_rel_err=r1, ms=ms1,
-                                             device_ms=dms1, plain_ms=pms1, bound_ms=b1)
+                                             device_ms=dms1, plain_ms=pms1, bound_ms=b1,
+                                             library_ms=lms1, library_device_ms=ldms1)
     rows["landmark_attention"]["decode_dh112"] = dict(shape=f"P={P112} G=1 L={Lm} Dh={D112}",
                                                       **dh112)
     del q1, k1, M1, bias1, mass1, qq, kk1, MM
@@ -2557,6 +2817,31 @@ def main() -> int:
           f"path (p) launched landmark_attention {launches['families']['landmark_attention']} "
           f"times and no other kernel ({others})")
 
+    # ---- 10. path (q): xLSTM ---------------------------------------------------- #
+    # once, its launch counts from 0: the reference's xLSTM reaches no
+    # pallas_call, so none of the nine kernels may launch
+    print(f"\n== path (q): xLSTM ({XL_ARCH}); card: {smi} ==")
+    torch.cuda.empty_cache()
+    print(f"  device memory held before (q): {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    reset_counts()
+    xlstm_path(torch, dev, smi)
+    launches["xlstm"] = counts()
+    check(not any(launches["xlstm"].values()),
+          f"path (q) launched none of the nine kernels: {launches['xlstm']}")
+
+    # ---- 11. path (r): the trace contracts ------------------------------------ #
+    # once, its launch counts from 0: each probe runs twice (a warm-up, then
+    # the recorded run), so every kernel launches twice what its recorded
+    # run counted
+    print(f"\n== path (r): the trace contracts (repro_torch.analysis); card: {smi} ==")
+    reset_counts()
+    results = contracts_path(torch, dev, smi)
+    launches["contracts"] = counts()
+    recorded = sum(r.report.get("kernel_launches", 0) for r in results)
+    check(sum(launches["contracts"].values()) == 2 * recorded > 0,
+          f"path (r): {sum(launches['contracts'].values())} launches, twice the recorded "
+          f"runs' {recorded} ({ {k: v for k, v in launches['contracts'].items() if v} })")
+
     # device ms on the paths: pass 3's KRR, engine and serving paths and
     # (n1) summed by wrapper under the profiler, and path (m)'s calls timed
     # one by one ((n2)'s ranks are not profiled)
@@ -2573,7 +2858,7 @@ def main() -> int:
               f"{row['library_ms']}); geometry {row.get('geometry')} by "
               f"{row['geometry_by']}")
     # launches: the sum over the main paths of pass 2, path (m), path (n)
-    # (both parts), (o) and (p), each counted from 0
+    # (both parts), (o), (p), (q) and (r), each counted from 0
     kernels = [dict(name=f.__name__, route="cuda", source=SRC if f in KN.KERNELS else LSRC,
                     launches=sum(c[f.__name__] for c in launches.values()),
                     launches_by_path={p: c[f.__name__] for p, c in launches.items()},

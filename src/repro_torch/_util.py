@@ -1,35 +1,33 @@
 """Small shared helpers (copied from ``repro.util``), device resolution, the
-RNG stream tags of ``repro.analysis.streams``, and the nested-container
-walks of the serving path's caches and checkpoints."""
+RNG streams (their tags are ``repro_torch.analysis.streams``'s), and the
+nested-container walks of the serving path's caches and checkpoints."""
 from __future__ import annotations
 
 import os
+import sys
 
 import torch
 
+# RNG stream tags.  An engine entry point seeded with s draws its slabs from
+# s itself and each other consumer from (s, tag), so the holdout rows and
+# the leverage redraws are decorrelated from the slabs; the registry
+# documents each.
+from repro_torch.analysis.streams import (  # noqa: F401
+    COMPRESS_STREAM,
+    DATA_STREAM,
+    HOLDOUT_STREAM,
+    KMEANS_STREAM,
+    REFINE_STREAM,
+    SAMPLE_STREAM,
+    SLOT_STREAM,
+)
+
 _FALSY = ("0", "false", "False", "FALSE", "off", "no")
 
-# RNG stream tags (values of repro.analysis.streams).  An engine entry
-# point seeded with s draws its slabs from s itself and each other consumer
-# from (s, tag), so the holdout rows and the leverage redraws are
-# decorrelated from the slabs.
-#: holdout-estimator rows of the adaptive growth loops
-HOLDOUT_STREAM = 0x5E1D
-#: leverage tail redraws; phase i draws from REFINE_STREAM + i
-REFINE_STREAM = 0x11E7
-#: k-means seeding in ``spectral_cluster`` (the port's own tag: the
-#: reference splits its key there instead)
-KMEANS_STREAM = 0x4B3A
-#: the serving engine's sketched-cache slot draws, one stream per position
-SLOT_STREAM = 0x510C
-#: the serving engine's temperature sampling, one stream per position
-SAMPLE_STREAM = 0x5A3E
-#: the synthetic token stream, folded with (step, host) (the port's own tag:
-#: the reference folds its data key with the step alone)
-DATA_STREAM = 0xDA7A
-#: sketched gradient compression, folded with (step, leaf) (the port's own
-#: tag, as for the data stream)
-COMPRESS_STREAM = 0xC0DE
+#: observers of every generator made here (``repro_torch.analysis.rng``'s
+#: lineage checker): each is called with (effective seed, call site), the
+#: call site being the first frame outside this module; they draw nothing
+RNG_HOOKS: list = []
 
 _MASK64 = (1 << 64) - 1
 
@@ -42,13 +40,28 @@ def _mix(seed: int, tag: int) -> int:
     return z ^ (z >> 31)
 
 
-def stream_generator(seed: int, tag: int | None = None) -> torch.Generator:
-    """A CPU ``torch.Generator`` for the stream (seed, tag); ``tag=None`` is
-    the seed's own stream.  The pair is mixed with splitmix64, so nearby
-    seeds and tags give unrelated streams.  Draws are made on the CPU and
-    moved to the device, so a seed gives the same numbers on every device."""
-    g = torch.Generator()
-    return g.manual_seed(seed if tag is None else _mix(seed, tag))
+def _call_site() -> str:
+    """``path:line`` of the first caller outside this module."""
+    f = sys._getframe(1)
+    while f is not None and f.f_code.co_filename == __file__:
+        f = f.f_back
+    return "?" if f is None else f"{f.f_code.co_filename}:{f.f_lineno}"
+
+
+def stream_generator(seed: int, tag: int | None = None, *,
+                     device="cpu") -> torch.Generator:
+    """A ``torch.Generator`` for the stream (seed, tag); ``tag=None`` is the
+    seed's own stream.  The pair is mixed with splitmix64, so nearby seeds
+    and tags give unrelated streams.  Draws are made on the CPU (the
+    default ``device``) and moved to the device, so a seed gives the same
+    numbers on every device; a generator on a card (``init_params``) gives
+    that card's numbers.  Every generator is reported to ``RNG_HOOKS``."""
+    s = seed if tag is None else _mix(seed, tag)
+    if RNG_HOOKS:
+        site = _call_site()
+        for hook in RNG_HOOKS:
+            hook(s, site)
+    return torch.Generator(device=device).manual_seed(s)
 
 
 def position_generator(seed: int, tag: int, pos: int, *more: int) -> torch.Generator:

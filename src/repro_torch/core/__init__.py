@@ -7,8 +7,10 @@ from repro_torch.core.sketch import (
     AccumState,
     append_subsample,
     make_accum_sketch,
+    make_accum_sketch_jit,
     make_gaussian_sketch,
     make_nystrom_sketch,
+    make_sparse_rp,
 )
 from repro_torch.core.apply import (
     accum_grow,
@@ -63,6 +65,24 @@ from repro_torch.core.spectral import (
     sketched_degrees,
     sketched_spectral_embedding,
     spectral_cluster,
+)
+from repro_torch.core.leverage import (
+    approx_leverage_probs,
+    d_delta,
+    incoherence,
+    leverage_probs,
+    leverage_scores,
+    spectrum,
+    statistical_dimension,
+)
+from repro_torch.core.schemes import (
+    SCHEMES,
+    poisson_inclusion,
+    poisson_pieces,
+    refresh_tail,
+    sketch_leverage_probs,
+    sketch_leverage_scores,
+    state_leverage_probs,
 )
 from repro_torch.core.ksat import KSatResult, ksat_check
 from repro_torch.core.amm import amm, amm_error

@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from repro_torch._util import HOLDOUT_STREAM, REFINE_STREAM, stream_generator
@@ -35,10 +36,18 @@ from repro_torch.core.schemes import _rademacher
 from repro_torch.core.sketch import AccumSketch, AccumState, make_accum_sketch
 
 
+# set by the trace-contract analyzer while a probe runs on the CPU
+# (``repro_torch.analysis.trace.route_as_on_card``): the defaults then route
+# to the kernel routers as on a card, where the CPU tensors take the plain
+# versions, so that a probe counts the same dispatches on both
+ROUTE_AS_ON_CARD = False
+
+
 def default_use_kernel(device) -> bool:
     """Whether a structural application on ``device`` takes the CUDA kernel:
-    True on a CUDA device, False on the CPU (where the plain version runs)."""
-    return torch.device(device).type == "cuda"
+    True on a CUDA device, False on the CPU (where the plain version runs),
+    unless ``ROUTE_AS_ON_CARD`` is set."""
+    return ROUTE_AS_ON_CARD or torch.device(device).type == "cuda"
 
 
 def _operator(K):
@@ -147,8 +156,9 @@ def gram_sketch(sk: AccumSketch) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 def _f32(x: float) -> float:
-    """``x`` rounded to float32, as the reference's float32 scalars are."""
-    return float(torch.tensor(x, dtype=torch.float32))
+    """``x`` rounded to float32, as the reference's float32 scalars are (on
+    the host: no tensor is made)."""
+    return float(np.float32(x))
 
 
 def _psd_apply_pinv(W: torch.Tensor, B: torch.Tensor,
@@ -594,6 +604,7 @@ def grow_sketch_both(seed: int, K, d: int, *, m_max: int = 32,
     n = K.shape[0]
     own = state is None           # a state drawn here may be grown in place
     if own:
+        # rng-stream: slabs
         state = accum_init(stream_generator(seed), n, d, m_max, probs,
                            signed=signed, scheme=scheme, device=_device(K))
     elif (state.n, state.d, state.m_max, state.m) != (n, d, m_max, 0):

@@ -214,6 +214,37 @@ def make_gaussian_sketch(generator: torch.Generator, n: int, d: int,
     return (S / d**0.5).to(device)
 
 
+def make_sparse_rp(generator: torch.Generator, n: int, d: int, s: float | None = None,
+                   dtype=torch.float32, *, device="cuda") -> torch.Tensor:
+    """Very sparse random projection (Li, Hastie and Church 2006), a dense
+    (n, d) baseline: each entry is √(s/d)·(+1 or −1 with probability
+    1/(2s) each, 0 otherwise), s defaulting to √n.  Uniforms, then signs,
+    are drawn on the generator's device and the result moves to
+    ``device``."""
+    device = resolve_device(device)
+    if s is None:
+        s = math.sqrt(n)
+    gdev = generator.device
+    u = torch.rand((n, d), generator=generator, device=gdev)
+    sgn = _rademacher(generator, (n, d), dtype)
+    scale = torch.sqrt(torch.full((), s / d, dtype=dtype, device=gdev))
+    return (sgn * (u < 1.0 / s).to(dtype) * scale).to(device)
+
+
+def make_accum_sketch_jit(generator: torch.Generator, n: int, d: int, m: int = 1,
+                          probs=None, signed: bool = True, dtype=torch.float32, *,
+                          scheme: str = "uniform", device="cuda") -> AccumSketch:
+    """The reference's jit'd constructor, with its contract: ``dtype``
+    reaches the signs, probs and coef, ``probs`` is normalized as in the
+    eager constructor, and ``scheme="leverage"`` without ``probs`` raises
+    the eager constructor's ``ValueError``.  PyTorch runs eagerly, so there
+    is nothing to trace: this is ``make_accum_sketch`` with the reference's
+    positional order, and its draw equals that constructor's for the same
+    generator."""
+    return make_accum_sketch(generator, n, d, m, probs, scheme=scheme, signed=signed,
+                             dtype=dtype, device=device)
+
+
 # --------------------------------------------------------------------------- #
 # Progressive accumulation state
 # --------------------------------------------------------------------------- #

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch._util import SLOT_STREAM, position_generator, resolve_device
+from repro_torch.core.apply import default_use_kernel
 from repro_torch.core.sketch import AccumSketch, make_accum_sketch
 
 NEG_INF = -1e30
@@ -73,8 +74,13 @@ def _newton_schulz_pinv(W: torch.Tensor, iters: int = 6) -> torch.Tensor:
     return Z
 
 
-def _scale(Dh: int, device) -> torch.Tensor:
-    return (1.0 / torch.sqrt(torch.tensor(Dh, dtype=torch.float32))).to(device)
+def softmax_scale(Dh: int) -> float:
+    """1/√Dh in float32, as a host number: every logit it scales is float32,
+    so the product is the one with a float32 tensor, and no tensor is made
+    or copied to the device.  numpy's square root is correctly rounded; it
+    equals PyTorch's CPU float32 value at every head dim to 1024 but 267,
+    and at every configured one."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(Dh)))
 
 
 def accum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,12 +94,12 @@ def accum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stages through the landmark kernels; the fused sweep never builds the
     (d, S) Bm softmax.  A failing kernel raises — there is no fallback."""
     if use_kernel is None:
-        use_kernel = q.device.type == "cuda"
+        use_kernel = default_use_kernel(q.device)
     if use_kernel:
         from repro_torch.kernels.landmark_attention.ops import accum_attention_kernel
 
         return accum_attention_kernel(q, k, v, sk, pinv_iters=pinv_iters)
-    scale = _scale(q.shape[-1], q.device)
+    scale = softmax_scale(q.shape[-1])
     kt = landmark_pool(k, sk, normalize=True).float()               # (B,H,d,Dh)
     qt = landmark_pool(q, sk, normalize=True).float()
     F = torch.softmax((q.float() @ kt.transpose(-1, -2)) * scale, dim=-1)
@@ -106,7 +112,7 @@ def accum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def exact_attention(q, k, v, *, causal: bool = False) -> torch.Tensor:
     """O(S²) reference attention (oracle for tests / small configs)."""
-    scale = _scale(q.shape[-1], q.device)
+    scale = softmax_scale(q.shape[-1])
     logits = (q.float() @ k.float().transpose(-1, -2)) * scale
     if causal:
         sq, sk_ = q.shape[-2], k.shape[-2]
@@ -173,8 +179,9 @@ def _fold_rounds(table_bytes: bytes, shape: tuple, d_slots: int, device: str):
     rounds = []
     for r in range(int(rank.max()) + 1 if len(rank) else 0):
         sel = upd[rank == r]
-        rounds.append((torch.as_tensor(sel // m_r, device=device),
-                       torch.as_tensor(flat[sel], device=device)))
+        # asynchronous copies: the decode loop waits on no host transfer
+        rounds.append((torch.from_numpy(sel // m_r).to(device, non_blocking=True),
+                       torch.from_numpy(flat[sel]).to(device, non_blocking=True)))
     return tuple(rounds)
 
 
@@ -244,10 +251,10 @@ def sketch_prefill_attend(q_seq: torch.Tensor, k_seq: torch.Tensor,
     m_r = table.shape[-1]
     dev = q_seq.device
     f32 = torch.float32
-    scale = _scale(Dh, dev)
+    scale = softmax_scale(Dh)
     c_mass = _contrib_scale(m_r)
     slot_ids = torch.arange(d_slots, device=dev)
-    table_dev = torch.as_tensor(table, device=dev)
+    table_dev = torch.from_numpy(table).to(dev, non_blocking=True)
     outs = []
     for t0 in range(0, L, chunk):
         t1 = min(L, t0 + chunk)
@@ -296,7 +303,7 @@ def sketch_decode_attend(q_t: torch.Tensor, cache: SketchCache, *,
     qg = q_t.reshape(B, Hkv, G, Dh).float()
     bias = torch.where(cache.mass <= 0, NEG_INF, torch.log(mass))
     if use_kernel is None:
-        use_kernel = q_t.device.type == "cuda"
+        use_kernel = default_use_kernel(q_t.device)
     if use_kernel:
         from repro_torch.kernels.landmark_attention.ops import landmark_attend
 
@@ -305,7 +312,7 @@ def sketch_decode_attend(q_t: torch.Tensor, cache: SketchCache, *,
                               vbar.reshape(B * Hkv, d_slots, Dh),
                               bias.reshape(B * Hkv, d_slots))
         return out.reshape(B, H, Dh).to(q_t.dtype)
-    logits = torch.einsum("bhgk,bhdk->bhgd", qg, kbar) * _scale(Dh, q_t.device)
+    logits = torch.einsum("bhgk,bhdk->bhgd", qg, kbar) * softmax_scale(Dh)
     logits = logits + bias[:, :, None, :]
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgd,bhdk->bhgk", p, vbar)

@@ -134,7 +134,8 @@ def kmeans(generator: torch.Generator, X: torch.Tensor, k: int, *,
         c = _kmeanspp_init(generator, X, k)
         for _ in range(iters):
             lab = torch.argmin(_sqdist(X, c), dim=1)
-            onehot = torch.nn.functional.one_hot(lab, k).to(X.dtype)
+            # one_hot's values, without its bounds check (a host read on the CPU)
+            onehot = (lab[:, None] == torch.arange(k, device=X.device)).to(X.dtype)
             counts = onehot.sum(dim=0)
             sums = onehot.T @ X
             c = torch.where(counts[:, None] > 0,
@@ -195,6 +196,7 @@ def spectral_cluster(seed: int, K, n_clusters: int, *, d: int,
             use_kernel=use_kernel, schedule=schedule, scheme=scheme, mesh=mesh)
     else:
         m_fix = m_max if m is None else m
+        # rng-stream: slabs
         sk = make_accum_sketch(stream_generator(seed), K.shape[0], d, m_fix,
                                probs, scheme=scheme, device=A._device(K))
         C, W = A.sketch_both(K, sk, use_kernel=use_kernel, mesh=mesh)

@@ -79,7 +79,8 @@ def params_from_numpy(tree, cfg, *, device) -> dict:
     """The port's parameters for the reference's ``init_params`` pytree with
     numpy leaves: the same nested names, every tensor carried over in its
     dtype (stacked over superblocks as in the reference: MoE expert stacks
-    are (n_sb, E, ·, ·); the router and the Mamba-2 constants stay
+    are (n_sb, E, ·, ·), the sLSTM recurrent matrices (n_sb, H, Dh, Dh); the
+    router, the Mamba-2 constants and the xLSTM gate weights stay
     float32).  The layout is checked against ``cfg``."""
     from repro_torch.models.model import _check_cfg
 
@@ -118,15 +119,20 @@ def train_state_from_numpy(state, cfg, *, device):
 
 
 def cache_from_numpy(cache, *, device):
-    """The port's ``SketchCache``, ``SSMState`` or ``KVCache`` for a
-    reference layer cache with numpy (or array-like) fields
-    ``(k_sum, v_sum, mass)``, ``(conv, ssm)`` or ``(k, v)``, each in its
-    dtype."""
+    """The port's ``SketchCache``, ``SSMState``, ``MLSTMState``,
+    ``SLSTMState`` or ``KVCache`` for a reference layer cache with numpy (or
+    array-like) fields ``(k_sum, v_sum, mass)``, ``(conv, ssm)``,
+    ``(C, n, m)``, ``(c, n, hst, m)`` or ``(k, v)``, each in its dtype."""
     from repro_torch.core.sketched_attention import SketchCache
     from repro_torch.models.attention import KVCache
     from repro_torch.models.ssm import SSMState
+    from repro_torch.models.xlstm import MLSTMState, SLSTMState
 
     device = resolve_device(device)
+    if hasattr(cache, "C"):
+        return MLSTMState(*(_tensor(x, device) for x in cache))
+    if hasattr(cache, "hst"):
+        return SLSTMState(*(_tensor(x, device) for x in cache))
     if hasattr(cache, "k_sum"):
         return SketchCache(*(_tensor(x, device) for x in (cache.k_sum, cache.v_sum,
                                                           cache.mass)))

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core.kernels_math import get_kernel
 from repro_torch.core.sketch import AccumSketch
+from repro_torch.kernels import routed
 from repro_torch.kernels.accum_apply import autotune
 from repro_torch.kernels.accum_apply import kernel as K_
 from repro_torch.kernels.accum_apply import ref
@@ -81,6 +82,7 @@ def autotune_both_blocks(n: int, device, d: int = 0, m: int = 0,
     return autotune.STATIC_TABLE["sketch_both"]
 
 
+@routed
 def matfree_cols_kernel(Xq: torch.Tensor, landmarks: torch.Tensor,
                         coef: torch.Tensor, *, kernel: str,
                         bandwidth: float = 1.0,
@@ -110,6 +112,7 @@ def matfree_cols_kernel(Xq: torch.Tensor, landmarks: torch.Tensor,
     return run(blocks)
 
 
+@routed
 def sketch_left_kernel(sk: AccumSketch, M: torch.Tensor) -> torch.Tensor:
     """Sᵀ M (d, c) through the left-apply kernel.  Returns float32."""
     coef32 = sk.coef.float().contiguous()
@@ -119,6 +122,7 @@ def sketch_left_kernel(sk: AccumSketch, M: torch.Tensor) -> torch.Tensor:
     return ref.sketch_left_ref(sk.indices, coef32, M)
 
 
+@routed
 def sketch_both_kernel(K: torch.Tensor, sk: AccumSketch
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """(C, W) = (K S, SᵀK S) for square K (n, n); W folds from the float32
@@ -148,6 +152,7 @@ def _apply_right(K: torch.Tensor, idx: torch.Tensor, coef32: torch.Tensor,
                           coef32, bm=blocks[0])
 
 
+@routed
 def sketch_right_kernel(K: torch.Tensor, sk: AccumSketch) -> torch.Tensor:
     """K S (R, d) for rectangular K (R, N), summed in float32 and returned in
     K's dtype.  One launch for any N (the CUDA gather has no VMEM bound, so
@@ -167,6 +172,7 @@ def sketch_right_kernel(K: torch.Tensor, sk: AccumSketch) -> torch.Tensor:
     return _apply_right(Kc, idx, coef32, blocks)
 
 
+@routed
 def accum_apply_scalar(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor,
                        *, bm: int = 256, bd: int = 8) -> torch.Tensor:
     """K S (R, d) by the seed's scalar per-column gather loop, the naive
@@ -181,6 +187,7 @@ def accum_apply_scalar(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor,
     return ref.accum_apply_ref(K, idx, coef32)
 
 
+@routed
 def sketch_step_kernel(K: torch.Tensor, idx_row: torch.Tensor,
                        coef_row: torch.Tensor, C: torch.Tensor,
                        a: float) -> torch.Tensor:
@@ -207,6 +214,7 @@ def sketch_step_kernel(K: torch.Tensor, idx_row: torch.Tensor,
                               bm=blocks[0])
 
 
+@routed
 def accum_grow_kernel(K: torch.Tensor, idx_blk: torch.Tensor,
                       coef_blk: torch.Tensor, C: torch.Tensor, a: float, *,
                       out: torch.Tensor | None = None

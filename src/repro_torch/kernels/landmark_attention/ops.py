@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.sketch import AccumSketch
+from repro_torch.kernels import routed
 from repro_torch.kernels.accum_apply import autotune
 from repro_torch.kernels.landmark_attention import kernel as K_
 from repro_torch.kernels.landmark_attention import ref
@@ -52,6 +53,7 @@ def _bq_candidates(S: int, fallback: tuple[int], Dh: int, dtype: torch.dtype,
             if K_.fits(b, Dh, dtype, out_dtype, device)]
 
 
+@routed
 def landmark_attend(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
                     bias: torch.Tensor | None = None) -> torch.Tensor:
     """softmax(q k̃ᵀ/√Dh + bias)·M for arbitrary (S, L).
@@ -87,6 +89,7 @@ def landmark_attend(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
     return out[0] if single else out
 
 
+@routed
 def landmark_stats_fused(qt: torch.Tensor, kt: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused (W, Bm·V) for arbitrary (S, L): qt, kt (…, L, Dh); k (…, S, Dh);
@@ -113,6 +116,7 @@ def landmark_stats_fused(qt: torch.Tensor, kt: torch.Tensor, k: torch.Tensor,
     return (W[0], BmV[0]) if single else (W, BmV)
 
 
+@routed
 def accum_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            sk: AccumSketch, *, pinv_iters: int = 6) -> torch.Tensor:
     """Full sketched attention (B, H, S, Dh) with both O(S·L) stages in the

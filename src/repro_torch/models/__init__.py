@@ -1,8 +1,9 @@
-"""The LM substrate for dense attention models: init, forward, prefill and
-decode with exact or sketched caches, and the training loss (ported from
-``repro.models``)."""
+"""The LM substrate (dense and MoE attention, Mamba-2 and xLSTM mixers):
+init, forward, prefill and decode with exact or sketched caches, and the
+training loss (ported from ``repro.models``)."""
 from repro_torch.models.model import (
     DecodeCache,
+    active_param_count,
     decode_step,
     forward,
     init_cache,

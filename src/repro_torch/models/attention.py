@@ -16,6 +16,7 @@ from repro_torch.core.sketched_attention import (
     init_sketch_cache,
     sketch_decode_attend,
     sketch_prefill_attend,
+    softmax_scale,
     update_sketch_cache,
 )
 from repro_torch.models.common import PARAM_DTYPE, apply_rope, dense_init
@@ -67,7 +68,7 @@ def _chunked_causal(q, k, v, cfg: ModelConfig, *, window: int | None, q_chunk: i
     B, S = q.shape[:2]
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // Hkv
-    scale = 1.0 / torch.sqrt(torch.tensor(Dh, dtype=torch.float32)).to(q.device)
+    scale = softmax_scale(Dh)
     qc = S // max(S // q_chunk, 1)
     outs = []
     for s0 in range(0, S, qc):
@@ -156,7 +157,7 @@ def attn_decode(p, h_t: torch.Tensor, cache: KVCache, pos: int, cfg: ModelConfig
     cache.k[:, write_pos] = k[:, 0].to(cache.k.dtype)
     cache.v[:, write_pos] = v[:, 0].to(cache.v.dtype)
     n = min(pos + 1, cache.k.shape[1])
-    scale = 1.0 / torch.sqrt(torch.tensor(Dh, dtype=torch.float32)).to(h_t.device)
+    scale = softmax_scale(Dh)
     qg = q.reshape(B, Hkv, G, Dh).float()
     logits = torch.einsum("bhgd,bshd->bhgs", qg, cache.k[:, :n].float()) * scale
     o = torch.einsum("bhgs,bshd->bhgd", torch.softmax(logits, dim=-1),

@@ -9,11 +9,10 @@ Params (the reference's names and layout, so the interop map is one-to-one):
   shared     {...}             — parameters for ``attn_shared`` kinds (Zamba2)
 
 Block kinds ``attn``, ``attn_local`` and ``attn_shared`` with the dense or
-the MoE FFN, and ``mamba2`` mixers, are ported, as is the conditioning
-input ``cond`` of the audio and vision configs (precomputed embeddings
-placed before the tokens; the frontends are stubs in the reference too).
-xLSTM mixers raise ``NotImplementedError`` (ROADMAP queue 1, "the rest of
-the model families").  Decode caches hold one state per layer:
+the MoE FFN, and the recurrent mixers ``mamba2``, ``mlstm`` and ``slstm``,
+are ported, as is the conditioning input ``cond`` of the audio and vision
+configs (precomputed embeddings placed before the tokens; the frontends are
+stubs in the reference too).  Decode caches hold one state per layer:
 ``DecodeCache.blocks`` maps pos{i} to a list over superblocks.  Training
 (``loss_fn``) checkpoints each superblock as ``remat`` says.
 """
@@ -29,13 +28,14 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from repro_torch._util import resolve_device, tree_leaves, tree_map
+from repro_torch._util import resolve_device, stream_generator, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sketched_attention import SketchCache
 from repro_torch.models import attention as att
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (
     PARAM_DTYPE,
     chunked_xent,
@@ -45,19 +45,24 @@ from repro_torch.models.common import (
 )
 
 Params = dict
-PORTED_KINDS = ("attn", "attn_local", "attn_shared", "mamba2")
+PORTED_KINDS = ("attn", "attn_local", "attn_shared", "mamba2", "mlstm", "slstm")
 
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP queue 1, \"the "
-        "rest of the model families\": the xLSTM blocks)")
+# the recurrent mixers: init, forward, cache init, per-token decode and the
+# token-scan prefill (the state the sequential decode reaches)
+_MIXERS = {
+    "mamba2": (ssm_mod.init_mamba2, ssm_mod.mamba2_forward, ssm_mod.mamba2_decode,
+               ssm_mod.mamba2_prefill),
+    "mlstm": (xlstm_mod.init_mlstm, xlstm_mod.mlstm_forward, xlstm_mod.mlstm_decode,
+              xlstm_mod.mlstm_prefill),
+    "slstm": (xlstm_mod.init_slstm, xlstm_mod.slstm_forward, xlstm_mod.slstm_decode,
+              xlstm_mod.slstm_prefill),
+}
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
     for kind in cfg.pattern:
         if kind not in PORTED_KINDS:
-            raise _unported(f"block kind {kind!r}")
+            raise ValueError(f"unknown block kind {kind!r}")
 
 
 # --------------------------------------------------------------------------- #
@@ -65,8 +70,8 @@ def _check_cfg(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------- #
 
 def _init_block(generator, kind: str, cfg: ModelConfig, dtype) -> Params:
-    if kind == "mamba2":
-        return {"mixer": ssm_mod.init_mamba2(generator, cfg, dtype)}
+    if kind in _MIXERS:
+        return {"mixer": _MIXERS[kind][0](generator, cfg, dtype)}
     p = {"attn": att.init_attn(generator, cfg, dtype)}
     if cfg.ffn == "dense" or kind == "attn_shared":
         p["ffn"] = ffn_mod.init_ffn(generator, cfg.d_model, cfg.d_ff, dtype)
@@ -99,7 +104,7 @@ def init_params(seed: int | torch.Generator, cfg: ModelConfig, *, device="cuda",
     _check_cfg(cfg)
     device = resolve_device(device)
     g = seed if isinstance(seed, torch.Generator) else (
-        torch.Generator(device=device).manual_seed(int(seed)))
+        stream_generator(int(seed), device=device))  # rng-stream: init-params
     params: Params = {
         "embed": embed_init(g, (cfg.vocab_size, cfg.d_model), dtype),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device),
@@ -138,7 +143,7 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     """Token embeddings times √d_model, the scale computed in the parameter
     dtype as the reference does."""
     h = params["embed"][tokens]
-    return h * torch.sqrt(torch.tensor(cfg.d_model, dtype=h.dtype, device=h.device))
+    return h * torch.sqrt(torch.full((), cfg.d_model, dtype=h.dtype, device=h.device))
 
 
 def _ffn(kind: str, p: Params, h: torch.Tensor, cfg: ModelConfig
@@ -214,9 +219,9 @@ def _superblock(h: torch.Tensor, aux: torch.Tensor, sb: Params, shared: Params,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     for j, kind in enumerate(cfg.pattern):
         p = shared if kind == "attn_shared" else sb[f"pos{j}"]
-        if kind == "mamba2":
+        if kind in _MIXERS:
             x = rmsnorm(h, p["mixer"]["norm"], cfg.norm_eps)
-            h = h + ssm_mod.mamba2_forward(p["mixer"], x, cfg)
+            h = h + _MIXERS[kind][1](p["mixer"], x, cfg)
             continue
         window = cfg.window if kind == "attn_local" else None
         h = h + att.attn_forward(p["attn"], rmsnorm(h, p["attn"]["norm"], cfg.norm_eps),
@@ -301,14 +306,18 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 # --------------------------------------------------------------------------- #
 
 class DecodeCache(NamedTuple):
-    """Per-layer decode states (KVCache, SketchCache or SSMState) of every
-    block."""
+    """Per-layer decode states (KVCache, SketchCache, SSMState, MLSTMState
+    or SLSTMState) of every block."""
     blocks: dict        # {pos{i}: [state of superblock 0, 1, …]}
 
 
 def _init_block_cache(kind, cfg: ModelConfig, batch, max_len, dtype, use_sketch, device):
     if kind == "mamba2":
         return ssm_mod.init_ssm_state(cfg, batch, dtype, device=device)
+    if kind == "mlstm":
+        return xlstm_mod.init_mlstm_state(cfg, batch, device=device)
+    if kind == "slstm":
+        return xlstm_mod.init_slstm_state(cfg, batch, device=device)
     if kind == "attn_local":
         return att.init_kv_cache(cfg, batch, min(max_len, cfg.window), dtype,
                                  device=device)
@@ -330,9 +339,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def _block_decode(kind, p, h, state, cfg, sin_t, cos_t, pos: int, slots):
-    if kind == "mamba2":
+    if kind in _MIXERS:
         x = rmsnorm(h, p["mixer"]["norm"], cfg.norm_eps)
-        y, state = ssm_mod.mamba2_decode(p["mixer"], x, state, cfg)
+        y, state = _MIXERS[kind][2](p["mixer"], x, state, cfg)
         return h + y, state
     x = rmsnorm(h, p["attn"]["norm"], cfg.norm_eps)
     if isinstance(state, SketchCache):
@@ -347,11 +356,12 @@ def _block_decode(kind, p, h, state, cfg, sin_t, cos_t, pos: int, slots):
 
 
 def _block_prefill(kind, p, h, state, cfg, sin, cos, slot_table, q_chunk):
-    if kind == "mamba2":
-        # the recurrent mixer has a per-token transition only: its token scan
-        # (the state the sequential decode reaches; ssm.mamba2_prefill)
+    if kind in _MIXERS:
+        # the recurrent mixers have a per-token transition only: their token
+        # scan (the state the sequential decode reaches, what does not depend
+        # on the state hoisted out of the loop)
         x = rmsnorm(h, p["mixer"]["norm"], cfg.norm_eps)
-        y, state = ssm_mod.mamba2_prefill(p["mixer"], x, state, cfg)
+        y, state = _MIXERS[kind][3](p["mixer"], x, state, cfg)
         return h + y, state
     x = rmsnorm(h, p["attn"]["norm"], cfg.norm_eps)
     if isinstance(state, SketchCache):
@@ -401,7 +411,8 @@ def decode_step(params: Params, cache: DecodeCache, token_t: torch.Tensor, pos: 
     (logits (B, V) float32, updated cache).  ``use_sketch`` is accepted for
     the reference's signature; each state's type decides its path."""
     h = _embed(params, token_t[:, None], cfg)
-    sin_t, cos_t = rope_table(torch.tensor([pos], device=h.device), cfg.head_dim,
+    # the position made on the device: a decode step copies nothing from the host
+    sin_t, cos_t = rope_table(torch.arange(pos, pos + 1, device=h.device), cfg.head_dim,
                               cfg.rope_theta)
     h, cache = _run_blocks(params, cache, h, cfg, lambda kind, p, h, st: _block_decode(
         kind, p, h, st, cfg, sin_t, cos_t, int(pos), slots))

@@ -157,5 +157,6 @@ def moe_forward(p: dict, h: torch.Tensor, moe: MoECfg) -> tuple[torch.Tensor, Mo
     non-trivial `model` axis and divisible shapes; otherwise the local path."""
     # The port has no mesh with a `model` axis (launch/mesh.py raises for
     # n_model > 1): the expert-parallel path, _moe_forward_a2a, waits for the
-    # 2-D parameter mesh (ROADMAP queue 1, item 4), so this is always local.
+    # 2-D parameter mesh (ROADMAP queue 1, "2-D parameter mesh"), so this is
+    # always local.
     return moe_forward_local(p, h, moe)

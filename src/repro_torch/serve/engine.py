@@ -130,16 +130,24 @@ class Engine:
                                         slots=self._slots(t))
         return cache, logits
 
-    def _decode(self, cache: DecodeCache, tok0: torch.Tensor, pos0: int, n_steps: int
-                ) -> tuple[np.ndarray, DecodeCache]:
-        """n_steps decode steps + samples; the tokens come to the host once."""
+    def _decode_loop(self, cache: DecodeCache, tok0: torch.Tensor, pos0: int,
+                     n_steps: int) -> tuple[torch.Tensor, DecodeCache]:
+        """n_steps decode steps + samples, the tokens left on the device
+        ((B, n_steps)): the loop reads nothing back on the host (the
+        trace contracts ``engine_decode`` and ``engine_decode_degraded``)."""
         tok, toks = tok0, []
         for pos in range(pos0, pos0 + n_steps):
             logits, cache = decode_step(self.params, cache, tok, pos, self.cfg,
                                         slots=self._slots(pos))
             tok = self._sample(logits, pos + 1)
             toks.append(tok)
-        return torch.stack(toks, dim=1).cpu().numpy().astype(np.int32), cache
+        return torch.stack(toks, dim=1), cache
+
+    def _decode(self, cache: DecodeCache, tok0: torch.Tensor, pos0: int, n_steps: int
+                ) -> tuple[np.ndarray, DecodeCache]:
+        """``_decode_loop``; the tokens come to the host once."""
+        toks, cache = self._decode_loop(cache, tok0, pos0, n_steps)
+        return toks.cpu().numpy().astype(np.int32), cache
 
     # ---------------------------------------------------------------- resume
 
@@ -278,6 +286,6 @@ class Engine:
             return torch.argmax(logits, dim=-1)
         g = position_generator(self.sc.seed, SAMPLE_STREAM, pos)
         u = torch.rand(logits.shape, generator=g, dtype=torch.float32)
-        u = u.clamp_min(torch.finfo(torch.float32).tiny).to(logits.device)
+        u = u.clamp_min(torch.finfo(torch.float32).tiny).to(logits.device, non_blocking=True)
         return torch.argmax(logits.float() / self.sc.temperature - torch.log(-torch.log(u)),
                             dim=-1)

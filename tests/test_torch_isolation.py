@@ -115,3 +115,28 @@ def test_build_dir_is_ignored():
     assert KT.library_path(LK.SOURCE).name.startswith("liblandmark_attention-")
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "build/" in ignored and "build/repro_torch/" in ignored
+
+
+def _init_imports(path: Path) -> set[str]:
+    """The names a package's ``__init__`` imports (``as`` names included)."""
+    return {a.asname or a.name for node in ast.walk(ast.parse(path.read_text()))
+            if isinstance(node, ast.ImportFrom) for a in node.names}
+
+
+# the reference's exports the port lacks on purpose, each with its reason
+EXPORT_EXCEPTIONS = {
+    # not ported: a CUDA tensor never degrades to another route (ROADMAP
+    # queue 1)
+    ("resilience", "ladder_call"),
+    # the port's default profile is the H100 it runs on (H100_SXM), not a TPU
+    ("analysis", "TPU_V5E"),
+}
+
+
+@pytest.mark.parametrize("package", ["core", "models", "analysis", "resilience"])
+def test_port_exports_every_name_the_reference_exports(package):
+    ref = _init_imports(ROOT / "src" / "repro" / package / "__init__.py")
+    port = _init_imports(PORT / package / "__init__.py")
+    missing = {n for n in ref - port if (package, n) not in EXPORT_EXCEPTIONS}
+    assert not missing, f"repro_torch.{package} lacks {sorted(missing)}"
+    assert all(n in ref for p, n in EXPORT_EXCEPTIONS if p == package)

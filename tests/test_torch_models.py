@@ -170,19 +170,14 @@ def test_cache_from_numpy_round_trip(built):
     assert tuple(kv.k.shape) == (2, 8, 2, 16)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m"])
-def test_unported_blocks_raise_naming_the_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="the rest of the model families"):
-        MT.init_params(0, reduced_t(ARCHS_T[arch]), device="cpu")
-
-
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b", "zamba2-7b",
-                                  "musicgen-medium", "qwen2-vl-2b"])
+                                  "musicgen-medium", "qwen2-vl-2b", "xlstm-125m"])
 def test_init_params_builds_the_ported_families(arch):
     """The port's own draw of each family has the reference's names, shapes,
     stacking and dtypes: MoE expert stacks (n_sb, E, ·, ·) beside a float32
     router, Mamba-2 mixers with float32 A_log, D and dt_bias, the shared
-    attention block, and the frontends' plain backbones."""
+    attention block, the frontends' plain backbones, and the xLSTM mixers
+    with their float32 gate weights and (n_sb, H, Dh, Dh) recurrences."""
     cj, ct = reduced(ARCHS[arch]), reduced_t(ARCHS_T[arch])
     pj = MJ.init_params(KEY, cj)
     pt = MT.init_params(0, ct, device="cpu")

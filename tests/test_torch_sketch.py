@@ -115,3 +115,54 @@ def test_schemes():
     assert sk.scheme == "leverage"
     with pytest.raises(ValueError):
         sk.truncated(3)
+
+
+def test_sparse_rp_density_and_values():
+    """Density 1/√n at the default s = √n (the reference's bound,
+    tests/test_sketch.py:152), values in {0, ±√(s/d)}, and the reference's
+    own draw under the same law."""
+    g = torch.Generator().manual_seed(0)
+    S = ST.make_sparse_rp(g, 400, 10, device="cpu")
+    assert S.shape == (400, 10) and S.dtype == torch.float32
+    density = (S != 0).float().mean().item()
+    assert abs(density - 1 / np.sqrt(400)) < 0.03
+    Sj = np.asarray(SJ.make_sparse_rp(KEY, 400, 10))
+    assert abs(float((Sj != 0).mean()) - 1 / np.sqrt(400)) < 0.03
+
+    def values_in(x, scale, rtol):
+        x = np.abs(np.asarray(x, np.float64))
+        return bool(np.all((x == 0) | np.isclose(x, scale, rtol=rtol, atol=0)))
+
+    assert values_in(S, np.sqrt(np.sqrt(400) / 10), 1e-7)
+    assert values_in(Sj, np.sqrt(np.sqrt(400) / 10), 1e-7)
+    S4 = ST.make_sparse_rp(torch.Generator().manual_seed(1), 64, 8, s=4.0,
+                           dtype=torch.float64, device="cpu")
+    assert S4.dtype == torch.float64 and values_in(S4, np.sqrt(0.5), 1e-15)
+    torch.testing.assert_close(S, ST.make_sparse_rp(torch.Generator().manual_seed(0), 400,
+                                                    10, device="cpu"), rtol=0, atol=0)
+
+
+def test_accum_sketch_jit_contract():
+    """dtype reaches signs, probs and coef (tests/test_progressive.py:217),
+    probs are normalized as the eager constructor's, the draw equals
+    make_accum_sketch's for the same generator, and scheme="leverage"
+    without probs raises (tests/test_schemes.py:177)."""
+    def gen():
+        return torch.Generator().manual_seed(5)
+
+    sk16 = ST.make_accum_sketch_jit(gen(), 64, 8, 2, dtype=torch.bfloat16, device="cpu")
+    assert sk16.signs.dtype == sk16.probs.dtype == sk16.coef.dtype == torch.bfloat16
+    sk32 = ST.make_accum_sketch_jit(gen(), 64, 8, 2, device="cpu")
+    assert sk32.signs.dtype == torch.float32
+    eager = ST.make_accum_sketch(gen(), 64, 8, 2, device="cpu")
+    assert torch.equal(sk32.indices, eager.indices) and torch.equal(sk32.coef, eager.coef)
+    w = torch.linspace(1.0, 3.0, 64)
+    skw = ST.make_accum_sketch_jit(gen(), 64, 8, 3, probs=w, signed=False, device="cpu")
+    torch.testing.assert_close(skw.probs, w / w.sum())
+    assert torch.equal(skw.signs, torch.ones_like(skw.signs))
+    eager_w = ST.make_accum_sketch(gen(), 64, 8, 3, probs=w, signed=False, device="cpu")
+    assert torch.equal(skw.indices, eager_w.indices)
+    with pytest.raises(ValueError, match="leverage"):
+        ST.make_accum_sketch_jit(gen(), 32, 4, 2, scheme="leverage", device="cpu")
+    with pytest.raises(ValueError, match="leverage"):
+        SJ.make_accum_sketch_jit(KEY, 32, 4, 2, scheme="leverage")

@@ -177,3 +177,16 @@ def test_poisson_slots_from_the_reference_uniforms():
         got = ST.decode_slots(0, step, d_slots, m_r, scheme="poisson",
                               draw=torch.from_numpy(u))
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_softmax_scale_is_the_float32_tensor_scale_at_every_configured_head_dim():
+    """The host float32 1/√Dh scales float32 logits to the same bits as the
+    float32 tensor the attention code used before, for every config."""
+    from repro_torch.configs import ARCHS, reduced
+
+    dims = {c.head_dim for cfg in ARCHS.values() for c in (cfg, reduced(cfg))}
+    x = torch.randn(257, generator=torch.Generator().manual_seed(0))
+    for Dh in sorted(dims):
+        t = 1.0 / torch.sqrt(torch.tensor(Dh, dtype=torch.float32))
+        assert ST.softmax_scale(Dh) == t.item(), Dh
+        assert torch.equal(x * ST.softmax_scale(Dh), x * t), Dh
