@@ -134,6 +134,31 @@
    ``torch.cuda.set_sync_debug_mode("error")`` where it allows no host
    sync; the launches equal to the dispatches; the device memory's rise
    within the budget), and the RNG sweep.
+   Then path (s), the 2-D parameter mesh (``mesh2d_path``: the sharding
+   rules of ``repro_torch.sharding``, the models' ``constrain`` calls, the
+   expert-parallel MoE, the sharded train step), once, its launch counts
+   from 0 (the reference's sharded training reaches no ``pallas_call``, so
+   no kernel may launch):
+   (s1) one NCCL rank in this process: moonshot-v1-16b-a3b at full width
+        (d_model 2048, 16 heads, 64 experts top-6 of d_ff 1408, vocabulary
+        163,840) cut to 2 superblocks (1.812 B float32 parameters from seed
+        0), 4 × 1024 tokens: the loss and gradients on a 1 × 1 ("data",
+        "model") mesh bitwise the same call with no mesh (wall and device
+        ms of both, peak memory); the plain version of the a2a path at data
+        2 and model 2, and stablelm-3b at full width cut to 2 layers, both
+        kept for (s2) as each gradient leaf's norm and 256 sampled entries;
+        one bfloat16 AdamW step with no mesh, timed;
+   (s2) four gloo ranks sharing the card (NCCL refuses two ranks on one
+        device), ``chip_smoke.py --mesh2d-rank RANK 4 STORE OUT`` started
+        together with a time limit, on a (data 2, model 2) mesh, the ranks
+        on the CPU (the line says "ranks on the CPU") at ``S_CPU_BATCH_SEQ``
+        tokens: both models' loss and gradients against (s1)'s
+        at ``S_TOL`` (the expert weights' at ``S_EXPERT_TOL``), bitwise equal
+        on every rank; moonshot's MoE layers on the a2a path; a
+        nothing-dropped MoE layer (capacity factor E/K) against
+        ``moe_forward_local``; one bfloat16 AdamW step of moonshot's sharded
+        state: its ms, each rank's state shards and peak memory against the
+        reckoned quarter of 14 B a parameter, aux and dropped.
 4. Prints one ``{"kernels": [...]}`` line (with each kernel's device ms
    summed on the paths of pass 3, (m), (n1) and (p1)), the card line, and as the
    last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -239,6 +264,31 @@ RECURRENT_TOL = 0.05
 XL_ARCH, XL_BATCH, XL_PROMPT, XL_NEW, XL_RESUME = "xlstm-125m", 4, 1024, 32, 64
 XL_SLSTM_L, XL_MLSTM_L = 64, 256
 XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_TRAIN_STEPS = 4, 512, 3
+
+# path (s), the 2-D parameter mesh: moonshot-v1-16b-a3b and stablelm-3b at
+# full width cut to S_SB superblocks, float32 weights from seed 0, on
+# batch × seq tokens; (s2)'s four gloo ranks on a (data 2, model 2) mesh,
+# their limit; the entries sampled from each gradient leaf;
+# the nothing-dropped MoE check's tokens (batch × seq).  The ranks hold CPU
+# tensors: on the H100 (torch 2.11.0+cu128) gloo carries all_reduce,
+# all_gather_into_tensor, reduce_scatter_tensor and all_to_all_single for
+# CUDA tensors, but DTensor's redistribute from Shard to Replicate (its
+# all-gather on the mesh's subgroups) killed all four ranks with SIGSEGV
+# (PERF.md §7), so the 2-D mesh on the card waits for several cards; on the
+# CPU the batch and length are cut to S_CPU_BATCH_SEQ
+S_MOE_ARCH, S_DENSE_ARCH, S_SB, S_BATCH, S_SEQ = "moonshot-v1-16b-a3b", "stablelm-3b", 2, 4, 1024
+S_SHAPE, S_TIMEOUT, S_SAMPLES = (2, 2), 300, 256
+S_NODROP = (2, 64)
+S_CPU_BATCH_SEQ = (2, 256)
+# (s2) against one process, both at S_CPU_BATCH_SEQ = 2 × 256 = 512 tokens:
+# the loss at 1e-5 relative and each gradient leaf's norm and sampled
+# entries at 1e-4 of the leaf's largest sampled entry (float32 sums in
+# another order; on the H100 the largest seen were 4.40e-6 for the samples,
+# stablelm-3b's, and 1.95e-7 for the norms, PERF.md §6); the expert
+# weights' gradients, rounded to bfloat16 where the a2a path reduce-scatters
+# them, at one bfloat16 step (2⁻⁸ ≈ 3.9e-3; the largest seen 5.30e-4), since
+# a sum that lands on a rounding boundary flips its last bit
+S_TOL, S_EXPERT_TOL = 1e-4, 2.0 ** -8
 
 SRC = "src/repro_torch/kernels/accum_apply/csrc/accum_apply.cu"
 LSRC = "src/repro_torch/kernels/landmark_attention/csrc/landmark_attention.cu"
@@ -1445,6 +1495,497 @@ def contracts_path(torch, dev, smi: str) -> list:
           f"{sum(r.status == 'skipped' for r in results)} skipped; "
           f"{time.perf_counter() - t0:.1f} s; card: {smi}")
     return results
+
+
+def grad_summary(torch, grads, n_samples: int = S_SAMPLES) -> dict:
+    """Each gradient leaf's float64 norm and its entries at ``n_samples``
+    fixed flat indices (a CPU generator seeded by the leaf's number), as
+    lists.  A sharded leaf (a DTensor) is summed and sampled where its
+    shards lie: each rank reads the sampled entries in its own box (the
+    first replica of a replicated axis only) and one ``all_reduce`` adds
+    them up, so no leaf is gathered whole."""
+    import torch.distributed as dist
+
+    from repro_torch import sharding as sh
+    from torch.distributed.tensor import Replicate
+
+    norms, samples = [], []
+    from torch.distributed.tensor import Partial
+
+    for i, g in enumerate(grads):
+        idx = torch.randint(0, g.numel(), (n_samples,),
+                            generator=torch.Generator().manual_seed(1000 + i))
+        if sh.is_dtensor(g) and any(isinstance(q, Partial) for q in g.placements):
+            g = g.redistribute(g.device_mesh, [Replicate() if isinstance(q, Partial) else q
+                                               for q in g.placements])
+        norms.append(float(sh.full(torch.sum(g.double() ** 2)).sqrt()))
+        if not sh.is_dtensor(g):
+            samples.append(g.reshape(-1)[idx.to(g.device)].double().cpu().tolist())
+            continue
+        dm, pls = g.device_mesh, list(g.placements)
+        coord = dm.get_coordinate()
+        box = sh.local_box(g.shape, dm, pls)
+        multi = torch.stack(torch.unravel_index(idx, tuple(g.shape)), dim=1)   # (k, ndim)
+        lo = torch.tensor([b[0] for b in box])
+        hi = torch.tensor([b[1] for b in box])
+        first = all(c == 0 for c, pl in zip(coord, pls) if isinstance(pl, Replicate))
+        mine = ((multi >= lo) & (multi < hi)).all(dim=1) & first
+        local = g.to_local()
+        vals = torch.zeros(n_samples, dtype=torch.float64, device=local.device)
+        if bool(mine.any()):
+            at = tuple((multi[mine] - lo).T.to(local.device))
+            vals[mine.to(local.device)] = local[at].double()
+        dist.all_reduce(vals)
+        samples.append(vals.cpu().tolist())
+    return {"norms": norms, "samples": samples}
+
+
+def summary_errors(got: dict, want: dict, names: list, expert) -> tuple[float, float, list]:
+    """(largest norm error and largest sampled-entry error, each over the
+    leaf's largest sampled entry, and the leaves outside their tolerance:
+    ``expert(name)`` picks the bfloat16 one)."""
+    import numpy as np
+
+    worst_n = worst_s = 0.0
+    bad = []
+    for i, name in enumerate(names):
+        w = np.asarray(want["samples"][i])
+        scale = max(float(np.abs(w).max()), 1e-30)
+        en = abs(got["norms"][i] - want["norms"][i]) / max(want["norms"][i], 1e-30)
+        es = float(np.abs(np.asarray(got["samples"][i]) - w).max()) / scale
+        worst_n, worst_s = max(worst_n, en), max(worst_s, es)
+        if max(en, es) > (S_EXPERT_TOL if expert(name) else S_TOL):
+            bad.append((name, round(en, 9), round(es, 9)))
+    return worst_n, worst_s, bad
+
+
+def leaf_names(tree: dict, prefix: str = "") -> list:
+    """Flat "/"-joined names of a parameter dict's leaves in ``tree_leaves``
+    order."""
+    out = []
+    for k in sorted(tree):
+        path = f"{prefix}/{k}" if prefix else k
+        out += leaf_names(tree[k], path) if isinstance(tree[k], dict) else [path]
+    return out
+
+
+def is_expert(name: str) -> bool:
+    """Whether a parameter is an MoE expert stack (its gradient goes through
+    the a2a path's bfloat16 gather)."""
+    return "/ffn/" in f"/{name}/" and name.rsplit("/", 1)[-1] in ("wi_gate", "wi_up", "wo")
+
+
+def mesh2d_configs(batch_seq=None):
+    """(moonshot cut to S_SB superblocks, stablelm-3b cut to S_SB layers,
+    (batch, seq)): full widths."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return tuple(dataclasses.replace(get_config(a), n_layers=S_SB, n_superblocks=S_SB)
+                 for a in (S_MOE_ARCH, S_DENSE_ARCH)) + (batch_seq or (S_BATCH, S_SEQ),)
+
+
+def loss_and_grads(torch, params, tok, lab, cfg):
+    """(loss, gradients in ``tree_leaves`` order) of ``loss_fn`` at
+    ``remat="full"``."""
+    from repro_torch._util import tree_leaves, tree_map
+    from repro_torch.models.model import loss_fn
+
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+    it = iter(leaves)
+    loss, _ = loss_fn(tree_map(lambda _: next(it), params), tok, lab, cfg, remat="full")
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    return loss.detach(), list(grads)
+
+
+def mesh2d_rank(rank: int, size: int, store: str, out: str) -> int:
+    """One rank of path (s2): ``chip_smoke.py --mesh2d-rank RANK SIZE STORE
+    OUT``.  Joins a gloo group of ``size`` ranks on the FileStore ``store``
+    with its tensors on the CPU, makes the (data 2, model 2)
+    mesh, and for each model draws its float32 weights from seed 0, places
+    them by ``params_shardings``, and computes the loss and the gradients of
+    the ``batch_spec``-sharded batch, summarised by ``grad_summary``; then
+    the nothing-dropped MoE layer against ``moe_forward_local``, and one
+    bfloat16 AdamW step of moonshot's sharded state.  Writes what it found
+    to ``out`` (JSON)."""
+    import hashlib
+    import resource
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import sharding as sh
+    from repro_torch._util import tree_leaves, tree_map
+    from repro_torch.configs.base import MoECfg
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import moe as MO
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as TS
+
+    dev = torch.device("cpu")
+    torch.set_num_threads(max(1, (os.cpu_count() or size) // size))
+    dist.init_process_group("gloo", store=dist.FileStore(store, size), rank=rank,
+                            world_size=size, timeout=timedelta(seconds=120))
+    res: dict = {"rank": rank, "device": str(dev)}
+
+    def peak_gb():
+        # the resident set's high-water mark since the rank started
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+    mets, a2a = [], []
+    forward_moe, forward_a2a = MO.moe_forward, MO._moe_forward_a2a
+
+    def recording(p, h, moe_cfg_):
+        # each forward MoE call's metrics and whether it took the a2a path
+        # (remat="full" runs the layers again in the backward: not recorded)
+        n0 = len(a2a)
+        o, m = forward_moe(p, h, moe_cfg_)
+        mets.append((m, len(a2a) > n0))
+        return o, m
+
+    def counting(*args):
+        a2a.append(1)
+        return forward_a2a(*args)
+
+    # the weights are drawn on the card, the same numbers as (s1)'s, and held
+    # on the CPU
+    draw_dev = torch.device("cuda", 0) if torch.cuda.is_available() else dev
+
+    def draw(cfg, dtype=torch.float32):
+        p = init_params(0, cfg, device=draw_dev, dtype=dtype)
+        if draw_dev != dev:
+            p = tree_map(lambda t: t.to(dev), p)
+            torch.cuda.empty_cache()
+        return p
+
+    try:
+        mesh = make_debug_mesh(*S_SHAPE, device=dev)
+        moe_cfg, dense_cfg, (B, L) = mesh2d_configs(json.loads(os.environ["S_BATCH_SEQ"]))
+        for cfg in (moe_cfg, dense_cfg):
+            params = draw(cfg)
+            if cfg.moe is not None:
+                # superblock 0's MoE layer, for the nothing-dropped check
+                layer = {k: v[0].clone() for k, v in params["blocks"]["pos0"]["ffn"].items()}
+            params = sh.shard_tree(params, mesh, sh.params_shardings(mesh, params))
+            tok, lab = global_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=L,
+                                               global_batch=B), 0, device=dev)
+            tok, lab = (sh.distribute(t, mesh, sh.batch_spec(mesh, B)) for t in (tok, lab))
+            mets.clear()
+            a2a.clear()
+            MO.moe_forward, MO._moe_forward_a2a = recording, counting
+            try:
+                t0 = time.perf_counter()
+                with mesh:
+                    loss, grads = loss_and_grads(torch, params, tok, lab, cfg)
+                dt = time.perf_counter() - t0
+            finally:
+                MO.moe_forward, MO._moe_forward_a2a = forward_moe, forward_a2a
+            summ = grad_summary(torch, grads)
+            res[cfg.name] = dict(
+                loss=float(sh.full(loss)), ms=dt * 1e3, peak_gb=peak_gb(),
+                digest=hashlib.sha1(json.dumps([float(sh.full(loss)), summ]).encode())
+                .hexdigest(), **summ,
+                aux=[float(sh.full(m.aux_loss)) for m, _ in mets],
+                dropped=[float(sh.full(m.dropped_fraction)) for m, _ in mets],
+                a2a=sum(took for _, took in mets))
+            del params, grads, loss, tok, lab
+        # the nothing-dropped configuration: superblock 0's MoE layer of
+        # moonshot's float32 weights, the experts rounded to bfloat16 (the a2a
+        # path gathers them so), a capacity that takes every entry
+        # (capacity_factor = E / K: C = T)
+        E, K = moe_cfg.moe.n_experts, moe_cfg.moe.top_k
+        nd = MoECfg(n_experts=E, top_k=K, d_ff_expert=moe_cfg.moe.d_ff_expert,
+                    capacity_factor=E / K)
+        p = {k: v.bfloat16().float() if k in ("wi_gate", "wi_up", "wo") else v
+             for k, v in layer.items()}
+        del layer
+        Bn, Ln = S_NODROP
+        h = 0.5 * torch.randn((Bn, Ln, moe_cfg.d_model), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(5))
+        pp = {k: sh.distribute(v, mesh, sh.param_spec(mesh, f"ffn/{k}", tuple(v.shape)))
+              for k, v in p.items()}
+        hh = sh.distribute(h, mesh, sh.batch_spec(mesh, Bn, extra_dims=2))
+        ws = [pp[k].requires_grad_() for k in ("wi_gate", "wi_up", "wo")]
+        with mesh:
+            o, m = MO.moe_forward(pp, hh, nd)
+            ga = torch.autograd.grad(torch.sum(o ** 2) + m.aux_loss, ws)
+        o, ga = sh.full(o).detach(), [sh.full(g) for g in ga]
+        res["nodrop"] = {"dropped": float(sh.full(m.dropped_fraction))}
+        if rank == 0:
+            wl = [p[k].requires_grad_() for k in ("wi_gate", "wi_up", "wo")]
+            ol, ml = MO.moe_forward_local(p, h, nd)
+            gl = torch.autograd.grad(torch.sum(ol ** 2) + ml.aux_loss, wl)
+            res["nodrop"].update(
+                out_err=float((o - ol).abs().max() / ol.abs().max()),
+                grad_err=[float((a - b).abs().max() / b.abs().max()) for a, b in zip(ga, gl)])
+        del p, pp, hh, ws, o, ga, h
+        # one bfloat16 AdamW step of moonshot's sharded state
+        tc = TS.TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT, total_steps=10), remat="full")
+        # placed before the optimizer state is made, so that no rank holds the
+        # whole float32 state: m, v and master inherit the parameters'
+        # placements, which must be opt_shardings'
+        params = draw(moe_cfg, torch.bfloat16)
+        psh = sh.params_shardings(mesh, params)
+        state = TS.init_train_state(sh.shard_tree(params, mesh, psh), tc)
+        del params
+        osh = sh.opt_shardings(mesh, state.opt, psh)
+        res["opt_placed"] = all(
+            list(x.placements) == sh.placements(mesh, spec)
+            for tree, specs in ((state.opt.m, osh.m), (state.opt.v, osh.v),
+                                (state.opt.master, osh.master))
+            for x, spec in zip(tree_leaves(tree), sh._spec_leaves(specs)))
+        tok, lab = global_batch(DataConfig(vocab_size=moe_cfg.vocab_size, seq_len=L,
+                                           global_batch=B), 0, device=dev)
+        mets.clear()
+        MO.moe_forward = recording
+        try:
+            t0 = time.perf_counter()
+            state, smets = TS.train_step(state, tok, lab, 0, moe_cfg, tc, mesh=mesh)
+            dt = time.perf_counter() - t0
+        finally:
+            MO.moe_forward = forward_moe
+        res["step"] = dict(
+            ms=dt * 1e3, peak_gb=peak_gb(), loss=float(smets["loss"]),
+            grad_norm=float(smets["grad_norm"]),
+            local_gb=sum(x.to_local().numel() * x.to_local().element_size() for x in
+                         tree_leaves((state.params, state.opt.m, state.opt.v,
+                                      state.opt.master))) / 1e9,
+            aux=[float(sh.full(m.aux_loss)) for m, _ in mets],
+            dropped=[float(sh.full(m.dropped_fraction)) for m, _ in mets],
+            digest=digest(sh.full(state.params["embed"]).float().cpu()))
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def mesh2d_path(torch, dev, smi: str, *, batch_seq=S_CPU_BATCH_SEQ,
+                timeout: float = S_TIMEOUT) -> None:
+    """Path (s), the 2-D parameter mesh (``repro_torch.sharding``, the
+    models' ``constrain`` calls, the expert-parallel MoE, the sharded train
+    step).
+
+    (s1) One process, NCCL, the card: moonshot-v1-16b-a3b at full width cut
+    to S_SB superblocks, float32 weights from seed 0, batch × seq tokens:
+    the loss and the gradients on a 1 × 1 ("data", "model") mesh against
+    the same call with no mesh, bit for bit; the plain version of the a2a
+    path at (s2)'s data 2 and model 2 (``moe_forward`` swapped for
+    ``moe_forward_a2a_plain`` where that mesh takes the a2a path), and
+    stablelm-3b cut
+    to S_SB layers with no mesh, both summarised for (s2)
+    (``grad_summary``); one bfloat16 AdamW step with no mesh, timed.  Wall
+    and device ms, peak memory.
+    (s2) Four gloo ranks sharing the card (``--mesh2d-rank``, started
+    together with a time limit; NCCL refuses two ranks on one device), their
+    tensors on the CPU, at ``batch_seq`` tokens: both models on the (2, 2)
+    mesh against (s1)'s results;
+    every replicated output bitwise equal across the ranks; the
+    nothing-dropped MoE layer against ``moe_forward_local``; one bfloat16
+    AdamW step of moonshot's sharded state, with its ms, each rank's peak
+    memory against the reckoned share, aux and dropped."""
+    import numpy as np
+
+    from repro_torch import sharding as sh
+    from repro_torch.core import distributed as DM
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.models import moe as MO
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as TS
+
+    t_all = time.perf_counter()
+    moe_cfg, dense_cfg, (B, L) = mesh2d_configs(batch_seq)
+    cuda = dev.type == "cuda"
+
+    def fresh_peak():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+
+    def batch(cfg, b=B, n=L):
+        return global_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=n,
+                                       global_batch=b), 0, device=dev)
+
+    def draw(cfg):
+        # the ranks draw the same numbers on the card and hold them on the CPU
+        return init_params(0, cfg, device=dev, dtype=torch.float32)
+
+    # ---- (s1) one process, NCCL, the card ------------------------------------
+    fresh_peak()
+    params = draw(moe_cfg)
+    n_params = param_count(params)
+    check(n_params == reckoned_params(moe_cfg),
+          f"(s1) {moe_cfg.name} at full width, {moe_cfg.n_superblocks} superblocks: "
+          f"{n_params} float32 parameters, reckoned {reckoned_params(moe_cfg)}")
+    tok, lab = batch(moe_cfg, S_BATCH, S_SEQ)
+    res0 = {}
+
+    def run0():
+        res0["v"] = loss_and_grads(torch, params, tok, lab, moe_cfg)
+
+    w0, d0, _, _ = profiled(torch, run0)
+    loss0, g0 = res0.pop("v")
+    pk0 = peak_gb()
+    dmesh = DM.make_data_mesh(device=dev)          # a one-rank NCCL group
+    try:
+        mesh = sh.make_mesh((1, 1), ("data", "model"), device=dev)
+        pm = sh.shard_tree(params, mesh, sh.params_shardings(mesh, params))
+        tm, lm = (sh.distribute(t, mesh, sh.batch_spec(mesh, S_BATCH)) for t in (tok, lab))
+
+        def run1():
+            with mesh:
+                res0["v"] = loss_and_grads(torch, pm, tm, lm, moe_cfg)
+
+        w1, d1, _, _ = profiled(torch, run1)
+        loss1, g1 = res0.pop("v")
+        loss1, g1 = sh.full(loss1), [sh.full(g) for g in g1]
+        names = leaf_names(params)
+        differ = [n for n, a, b in zip(names, g1, g0) if not torch.equal(a, b)]
+        worst = max([0.0] + [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                             for a, b in zip(g1, g0)])
+        print(f"  (s1) {moe_cfg.name} float32 loss and gradients of {S_BATCH}×{S_SEQ} tokens: "
+              f"no mesh "
+              f"{w0:.1f} ms wall, {d0:.1f} ms device; on the 1 × 1 (data, model) mesh "
+              f"{w1:.1f} ms wall, {d1:.1f} ms device; peak {max(pk0, peak_gb()):.2f} GB; card: "
+              f"{smi}")
+        check(torch.equal(loss1, loss0) and (not differ or worst <= 1e-6),
+              f"(s1) the 1 × 1 mesh's loss {loss1.item():.6f} "
+              f"{'bitwise' if torch.equal(loss1, loss0) else 'NOT bitwise'} the no-mesh "
+              f"{loss0.item():.6f}; gradients bitwise but {differ} (largest error over the "
+              f"leaf's largest entry {worst:.3e}, tol 1e-6)")
+        del pm, g1, tm, lm
+    finally:
+        dmesh.close()
+    del g0
+    fresh_peak()
+    # check 2: the plain version of the a2a path at (s2)'s data 2 and model 2,
+    # on (s2)'s batch
+    tok, lab = batch(moe_cfg)
+    forward = MO.moe_forward
+
+    def plain_a2a(p, h, moe):
+        if MO._use_a2a(moe, *h.shape, *S_SHAPE):
+            return MO.moe_forward_a2a_plain(p, h, moe, *S_SHAPE)
+        return MO.moe_forward_local(p, h, moe)
+
+    MO.moe_forward = plain_a2a
+    try:
+        (loss2, g2), t2 = wall(torch, lambda: loss_and_grads(torch, params, tok, lab, moe_cfg))
+    finally:
+        MO.moe_forward = forward
+    ref = {moe_cfg.name: dict(loss=loss2.item(), **grad_summary(torch, g2)),
+           "names": {moe_cfg.name: leaf_names(params)}}
+    print(f"  (s1) the plain a2a path (data {S_SHAPE[0]}, model {S_SHAPE[1]}) on (s2)'s "
+          f"{B}×{L} tokens: loss {loss2.item():.6f}; {t2 * 1e3:.1f} ms; peak {peak_gb():.2f} GB")
+    del params, g2, tok, lab
+    fresh_peak()
+    # stablelm-3b's one-process result
+    params = draw(dense_cfg)
+    tok, lab = batch(dense_cfg)
+    (loss3, g3), t3 = wall(torch, lambda: loss_and_grads(torch, params, tok, lab, dense_cfg))
+    ref[dense_cfg.name] = dict(loss=loss3.item(), **grad_summary(torch, g3))
+    ref["names"][dense_cfg.name] = leaf_names(params)
+    print(f"  (s1) {dense_cfg.name} at full width, {dense_cfg.n_layers} layers "
+          f"({param_count(params)} float32 parameters), {B}×{L} tokens: loss {loss3.item():.6f}, "
+          f"{t3 * 1e3:.1f} ms, peak {peak_gb():.2f} GB")
+    del params, g3, tok, lab
+    fresh_peak()
+    # check 3: one bfloat16 AdamW step with no mesh
+    tc = TS.TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT, total_steps=10), remat="full")
+    state = TS.init_train_state(init_params(0, moe_cfg, device=dev), tc)
+    tok, lab = batch(moe_cfg, S_BATCH, S_SEQ)
+    (state, smets), ts = wall(torch, lambda: TS.train_step(state, tok, lab, 0, moe_cfg, tc))
+    print(f"  (s1) one bfloat16 AdamW step of {moe_cfg.name} with no mesh: {ts * 1e3:.1f} ms, "
+          f"loss {smets['loss'].item():.6f}, peak {peak_gb():.2f} GB")
+    check(bool(torch.isfinite(smets["loss"])), "(s1) the bfloat16 step's loss is finite")
+    del state, smets, tok, lab
+    fresh_peak()
+
+    # ---- (s2) four gloo ranks sharing the card ---------------------------------
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh2d_"))
+    env = dict(os.environ, REPRO_AUTOTUNE="0", S_BATCH_SEQ=json.dumps([B, L]))
+    size = S_SHAPE[0] * S_SHAPE[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh2d-rank",
+                               str(r), str(size), str(tmp / "store"), str(tmp / f"r{r}.json")],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(size)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            logs.append(p.communicate()[0])
+    t2 = time.perf_counter() - t0
+    ok2 = all(p.returncode == 0 for p in procs)
+    where = "ranks on the CPU"
+    check(ok2, f"(s2) four gloo ranks ({where}) ran to their end in {t2:.1f} s (limit "
+               f"{timeout} s): exit codes {[p.returncode for p in procs]}")
+    if not ok2:
+        for r, log in enumerate(logs):
+            print(f"  (s2) rank {r} output:\n{log[-3000:]}")
+        print(f"  (s) {time.perf_counter() - t_all:.1f} s")
+        return
+    reps = [json.loads((tmp / f"r{r}.json").read_text()) for r in range(size)]
+    print(f"  (s2) {where} (gloo, {reps[0]['device']}), a (data {S_SHAPE[0]}, model "
+          f"{S_SHAPE[1]}) mesh, {B}×{L} tokens; {t2:.1f} s in all; card: {smi}")
+    for cfg in (moe_cfg, dense_cfg):
+        got = [r[cfg.name] for r in reps]
+        want = ref[cfg.name]
+        en, es, bad = summary_errors(got[0], want, ref["names"][cfg.name], is_expert)
+        lerr = abs(got[0]["loss"] - want["loss"]) / abs(want["loss"])
+        print(f"  (s2) {cfg.name}: loss {got[0]['loss']:.6f} against one process's "
+              f"{want['loss']:.6f} (rel {lerr:.2e}); gradient norms rel {en:.2e}, "
+              f"{S_SAMPLES} sampled entries a leaf {es:.2e} of the leaf's largest; loss and "
+              f"gradients {[round(g['ms'], 1) for g in got]} ms by rank, peak "
+              f"{[round(g['peak_gb'], 2) for g in got]} GB by rank")
+        check(lerr <= 1e-5 and not bad,
+              f"(s2) {cfg.name} on the mesh against one process: loss rel {lerr:.2e} (tol "
+              f"1e-5), leaves outside tolerance {bad} (tol {S_TOL}, experts {S_EXPERT_TOL})")
+        check(len({g["digest"] for g in got}) == 1,
+              f"(s2) {cfg.name}: loss, gradient norms and samples bitwise equal on the "
+              f"{size} ranks")
+        if cfg.moe is not None:
+            check(len(got[0]["aux"]) == got[0]["a2a"] == cfg.n_layers,
+                  f"(s2) {cfg.name}: {got[0]['a2a']} of {cfg.n_layers} MoE layers on the a2a "
+                  f"path, aux {[round(a, 5) for a in got[0]['aux']]}, dropped "
+                  f"{[round(d, 5) for d in got[0]['dropped']]}")
+    nd = reps[0]["nodrop"]
+    # the a2a path's expert gradients are bfloat16 (each rank's rounded, then
+    # their sum over the data ranks rounded): two bfloat16 steps of the
+    # float32 local gradient's largest entry
+    check(all(r["nodrop"]["dropped"] == 0.0 for r in reps) and nd["out_err"] <= 1e-5
+          and max(nd["grad_err"]) <= 2 * S_EXPERT_TOL,
+          f"(s2) nothing dropped (capacity factor E/K, {S_NODROP[0]}×{S_NODROP[1]} tokens): "
+          f"the a2a layer against moe_forward_local, output {nd['out_err']:.2e} (tol 1e-5), "
+          f"expert gradients {[f'{e:.2e}' for e in nd['grad_err']]} (tol "
+          f"{2 * S_EXPERT_TOL}) of the largest entry")
+    st = [r["step"] for r in reps]
+    share = 14 * reckoned_params(moe_cfg) / size / 1e9
+    print(f"  (s2) one bfloat16 AdamW step of {moe_cfg.name}'s sharded state: ms "
+          f"{[round(x['ms'], 1) for x in st]} by rank, loss {st[0]['loss']:.6f}, grad norm "
+          f"{st[0]['grad_norm']:.4f}; state shards {[round(x['local_gb'], 2) for x in st]} GB "
+          f"against the reckoned quarter of 14 B × {reckoned_params(moe_cfg)} = {share:.2f} GB; "
+          f"peak {[round(x['peak_gb'], 2) for x in st]} GB"
+          f" (host: the resident set's high-water mark since the rank started, which the "
+          f"whole float32 draw of the first model sets); aux "
+          f"{[round(a, 5) for a in st[0]['aux']]}, dropped "
+          f"{[round(d, 5) for d in st[0]['dropped']]}; card: {smi}")
+    check(len({x["digest"] for x in st}) == 1 and np.isfinite(st[0]["loss"])
+          and all(r["opt_placed"] for r in reps),
+          "(s2) the AdamW state placed by opt_shardings; the bfloat16 step's parameters "
+          "bitwise equal on the ranks, its loss finite")
+    print(f"  (s) {time.perf_counter() - t_all:.1f} s")
 
 
 def main() -> int:
@@ -2842,6 +3383,18 @@ def main() -> int:
           f"path (r): {sum(launches['contracts'].values())} launches, twice the recorded "
           f"runs' {recorded} ({ {k: v for k, v in launches['contracts'].items() if v} })")
 
+    # ---- 12. path (s): the 2-D parameter mesh -------------------------------- #
+    # once, its launch counts from 0: the reference's sharded training reaches
+    # no pallas_call, so none of the nine kernels may launch
+    print(f"\n== path (s): the 2-D parameter mesh (repro_torch.sharding); card: {smi} ==")
+    torch.cuda.empty_cache()
+    print(f"  device memory held before (s): {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    reset_counts()
+    mesh2d_path(torch, dev, smi)
+    launches["mesh2d"] = counts()
+    check(not any(launches["mesh2d"].values()),
+          f"path (s) launched none of the nine kernels: {launches['mesh2d']}")
+
     # device ms on the paths: pass 3's KRR, engine and serving paths and
     # (n1) summed by wrapper under the profiler, and path (m)'s calls timed
     # one by one ((n2)'s ranks are not profiled)
@@ -2858,7 +3411,7 @@ def main() -> int:
               f"{row['library_ms']}); geometry {row.get('geometry')} by "
               f"{row['geometry_by']}")
     # launches: the sum over the main paths of pass 2, path (m), path (n)
-    # (both parts), (o), (p), (q) and (r), each counted from 0
+    # (both parts), (o), (p), (q), (r) and (s), each counted from 0
     kernels = [dict(name=f.__name__, route="cuda", source=SRC if f in KN.KERNELS else LSRC,
                     launches=sum(c[f.__name__] for c in launches.values()),
                     launches_by_path={p: c[f.__name__] for p, c in launches.items()},
@@ -2881,6 +3434,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh2d-rank"]:
+        sys.exit(mesh2d_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

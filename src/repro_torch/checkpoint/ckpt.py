@@ -7,8 +7,12 @@ Layout: <dir>/step_<n>/state.npz + meta.json + COMMITTED, written to a tmp
 path and renamed (atomic on POSIX), so a kill mid-write never corrupts the
 latest checkpoint.  Only directories with the COMMITTED marker count, and
 ``latest_step`` sweeps stale ``.tmp`` / uncommitted directories by default.
-Tensors are stored on the host; bfloat16 travels as its uint16 bits with the
-dtype in meta.json, and a None leaf (an ineligible leaf's error feedback) as
+Tensors are stored on the host; a sharded tensor (a DTensor on a 2-D mesh)
+as this rank's shard, with its mesh and placements in meta.json (each rank
+checkpoints its own shards, so a state restores only on the mesh and
+placements it was saved with: any other target, a whole tensor included,
+raises ValueError, as a leaf of another shape does); bfloat16 travels as its uint16 bits with the dtype in
+meta.json, and a None leaf (an ineligible leaf's error feedback) as
 an empty array marked "none".  An npz is a zip with a CRC per array, so a bit-flipped
 or torn payload fails to load instead of loading wrong numbers.
 
@@ -39,26 +43,76 @@ PyTree = Any
 _COMMIT = "COMMITTED"
 
 
+class _Held:
+    """A host copy of a DTensor's shard on this rank, with its layout."""
+
+    __slots__ = ("local", "layout")
+
+    def __init__(self, local: torch.Tensor, layout: dict):
+        self.local, self.layout = local, layout
+
+
+def _local(x):
+    """A DTensor's shard on this rank (a held copy's); anything else as it
+    is."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, _Held):
+        return x.local
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _layout(x) -> dict:
+    """How a leaf lies over the ranks: a DTensor's mesh (axis name and size,
+    in order) and placements; nothing for anything else (a whole leaf)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, _Held):
+        return x.layout
+    if not isinstance(x, DTensor):
+        return {}
+    dm = x.device_mesh
+    names = dm.mesh_dim_names or [str(i) for i in range(dm.ndim)]
+    return {"mesh": [[n, int(k)] for n, k in zip(names, dm.shape)],
+            "placements": [str(q) for q in x.placements]}
+
+
 def _encode(x) -> tuple[np.ndarray, dict]:
+    layout = _layout(x)
+    x = _local(x)
     if x is None:
         return np.zeros(0, np.uint8), {"dtype": "none", "torch": False}
     if isinstance(x, torch.Tensor):
         t = x.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), {
-                "dtype": "bfloat16", "torch": True}
-        return t.numpy(), {"dtype": str(t.numpy().dtype), "torch": True}
+                "dtype": "bfloat16", "torch": True, **layout}
+        return t.numpy(), {"dtype": str(t.numpy().dtype), "torch": True, **layout}
     a = np.asarray(x)
     return a, {"dtype": str(a.dtype), "torch": False}
 
 
 def _decode(a: np.ndarray, info: dict, like):
+    saved = {k: info[k] for k in ("mesh", "placements") if k in info}
+    want = _layout(like)
+    if saved != want:
+        raise ValueError(f"a leaf saved as {saved or 'a whole tensor'} cannot restore into "
+                         f"{want or 'a whole tensor'}: a sharded state restores only on the "
+                         f"mesh and placements it was saved with")
     if info["dtype"] == "none":
         return None
     if info["dtype"] == "bfloat16":
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a, dtype=np.dtype(info["dtype"])))
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(like, DTensor):
+        if tuple(t.shape) != tuple(like.to_local().shape):
+            raise ValueError(f"a shard of shape {tuple(t.shape)} cannot restore into this "
+                             f"rank's shard of shape {tuple(like.to_local().shape)}")
+        return DTensor.from_local(t.to(like.device), like.device_mesh, like.placements,
+                                  run_check=False, shape=like.shape, stride=like.stride())
     if isinstance(like, torch.Tensor):
         return t.to(like.device)
     return t.numpy() if not info["torch"] else t
@@ -199,9 +253,13 @@ def retain(path: str, keep: int = 3) -> None:
 
 
 def _snapshot(x):
-    """A host copy of a leaf that no later in-place update can reach."""
+    """A host copy of a leaf (of a DTensor, this rank's shard, held with its
+    layout) that no later in-place update can reach."""
+    layout = _layout(x)
+    x = _local(x)
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True)
+        t = x.detach().to("cpu", copy=True)
+        return _Held(t, layout) if layout else t
     return None if x is None else np.array(x, copy=True)
 
 

@@ -16,6 +16,7 @@ from repro_torch._util import resolve_device, tree_leaves, tree_map
 from repro_torch.core.kernel_op import KernelOperator
 from repro_torch.core.krr import SketchedKRR
 from repro_torch.core.sketch import AccumSketch, AccumState, _compute_coef
+from repro_torch.sharding import _with_paths
 
 
 def sketch_from_numpy(indices, signs, probs, n: int, coef=None, *,
@@ -75,18 +76,31 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def params_from_numpy(tree, cfg, *, device) -> dict:
+def params_from_numpy(tree, cfg, *, device, mesh=None, policy: str = "default") -> dict:
     """The port's parameters for the reference's ``init_params`` pytree with
     numpy leaves: the same nested names, every tensor carried over in its
     dtype (stacked over superblocks as in the reference: MoE expert stacks
     are (n_sb, E, ·, ·), the sLSTM recurrent matrices (n_sb, H, Dh, Dh); the
     router, the Mamba-2 constants and the xLSTM gate weights stay
-    float32).  The layout is checked against ``cfg``."""
+    float32).  The layout is checked against ``cfg``.  With a 2-D ``mesh``
+    (``sharding.Mesh``; every rank passes the same tree) each leaf becomes a
+    DTensor placed by ``sharding.param_spec`` under ``policy``, one leaf
+    whole on the device at a time."""
     from repro_torch.models.model import _check_cfg
 
     _check_cfg(cfg)
     device = resolve_device(device)
-    params = tree_map(lambda a: _tensor(a, device), tree)
+    if mesh is not None:
+        from repro_torch.sharding import distribute, param_spec
+
+        def place(path, a):
+            t = _tensor(a, device)
+            return distribute(t, mesh, param_spec(mesh, "/".join(path), tuple(t.shape),
+                                                  policy))
+
+        params = _with_paths(place, tree)
+    else:
+        params = tree_map(lambda a: _tensor(a, device), tree)
     if tuple(params["embed"].shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed has shape {tuple(params['embed'].shape)}, config "
                          f"wants {(cfg.vocab_size, cfg.d_model)}")

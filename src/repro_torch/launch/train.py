@@ -7,11 +7,17 @@ synthetic token stream (ported from ``repro.launch.train``).
 
 Runs on the card unless ``--device cpu`` is given (run with ``src`` on
 ``PYTHONPATH``).  ``--mesh debug`` is the data mesh: one rank, or the ranks
-``torchrun`` starts (each on ``cuda:LOCAL_RANK``); ``--mesh pod|multipod``
-raise (the 2-D parameter mesh is not ported).  The loop resumes from the
-newest checkpoint under ``--ckpt-dir``: running the same command again after
-a kill is the restart drill.  The loop is deterministic, so the launcher
-sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless the environment has it.
+``torchrun`` starts (each on ``cuda:LOCAL_RANK``), the parameters
+replicated.  ``--mesh pod|multipod`` is the production 2-D mesh of 256 (or
+512) ranks under ``torchrun`` (``make_production_mesh``): the parameters
+drawn whole on each rank and placed by ``sharding.params_shardings``, the
+AdamW state sharded as they are, the error feedback replicated, the batch
+``batch_spec``-sharded.  Every process group the launcher makes has a
+timeout, so a rank that dies fails the others instead of hanging them.  The
+loop resumes from the newest checkpoint under ``--ckpt-dir``: running the
+same command again after a kill is the restart drill.  The loop is
+deterministic, so the launcher sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8``
+unless the environment has it.
 """
 from __future__ import annotations
 
@@ -21,8 +27,10 @@ import os
 import numpy as np
 import torch
 
+from repro_torch import sharding as shlib
 from repro_torch._util import resolve_device
 from repro_torch.configs import get_config, reduced
+from repro_torch.core.distributed import TIMEOUT
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.models.model import init_params
@@ -51,8 +59,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "debug":
-        make_production_mesh(multi_pod=args.mesh == "multipod")
     # cuBLAS reads this when CUDA starts; the deterministic loop needs it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     cfg = get_config(args.arch)
@@ -65,9 +71,12 @@ def main(argv=None) -> int:
         if device.type == "cuda":
             device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
             torch.cuda.set_device(device)
-        torch.distributed.init_process_group("nccl" if device.type == "cuda" else "gloo")
-    mesh = make_debug_mesh(device=device)
+        torch.distributed.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                             timeout=TIMEOUT)
+    mesh = None
     try:
+        mesh = (make_debug_mesh(device=device) if args.mesh == "debug" else
+                make_production_mesh(multi_pod=args.mesh == "multipod", device=device))
         tc = TrainConfig(
             optimizer=AdamWConfig(lr_peak=args.lr, total_steps=args.steps),
             n_micro=args.n_micro,
@@ -77,11 +86,16 @@ def main(argv=None) -> int:
                         ckpt_every=args.ckpt_every)
 
         def init():
-            return init_train_state(init_params(0, cfg, device=device), tc)
+            params = init_params(0, cfg, device=device)
+            if isinstance(mesh, shlib.Mesh):
+                params = shlib.shard_tree(params, mesh,
+                                          shlib.params_shardings(mesh, params))
+            return init_train_state(params, tc)
 
         report = run(cfg, tc, dc, lc, init_params_fn=init, mesh=mesh)
     finally:
-        mesh.close()
+        if mesh is not None:
+            mesh.close()
         if own_group:
             torch.distributed.destroy_process_group()
 

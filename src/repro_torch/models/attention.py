@@ -1,10 +1,9 @@
 """Attention blocks: GQA + RoPE, chunked-causal prefill, sliding window,
 exact KV-cache decode, and the AccumSketch (paper technique) compressed
-decode (ported from ``repro.models.attention``; the reference's sharding
-constraints drop out: they belong to ROADMAP queue 1's "2-D parameter
-mesh")."""
+decode (ported from ``repro.models.attention``)."""
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -20,6 +19,7 @@ from repro_torch.core.sketched_attention import (
     update_sketch_cache,
 )
 from repro_torch.models.common import PARAM_DTYPE, apply_rope, dense_init
+from repro_torch.sharding import constrain, from_local, is_dtensor
 
 NEG_INF = -1e30
 
@@ -51,23 +51,72 @@ def _qkv(p, h, cfg: ModelConfig, sin, cos):
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = apply_rope(q.reshape(B, S, H, Dh), sin, cos)
-    k = apply_rope(k.reshape(B, S, Hkv, Dh), sin, cos)
-    return q, k, v.reshape(B, S, Hkv, Dh)
+    q = apply_rope(_split_heads(q, H, Dh), sin, cos)
+    k = apply_rope(_split_heads(k, Hkv, Dh), sin, cos)
+    return q, k, _split_heads(v, Hkv, Dh)
+
+
+def _split_heads(x: torch.Tensor, n: int, Dh: int) -> torch.Tensor:
+    """(B, S, n·Dh) → (B, S, n, Dh)."""
+    return _reshape_aligned(x, 2, n, (*x.shape[:2], n, Dh))
+
+
+def _reshape_aligned(x: torch.Tensor, dim: int, n: int, shape) -> torch.Tensor:
+    """``x.reshape(shape)``, where the reshape splits or merges ``dim`` in
+    ``n`` equal groups.  A DTensor whose ``dim`` is split over ranks off the
+    group boundaries (the model axis does not divide n) is gathered across
+    those ranks first, where GSPMD would reshard it too: DTensor refuses to
+    reshape such a split.  The result is pinned to its layout, so that the
+    backward gathers the incoming gradient before undoing the reshape."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    dm = x.device_mesh
+    ways = math.prod(k for k, pl in zip(dm.mesh.shape, x.placements) if pl == Shard(dim))
+    if n % ways == 0:
+        return x.reshape(shape)
+    x = x.redistribute(dm, [Replicate() if pl == Shard(dim) else pl for pl in x.placements])
+    y = x.reshape(shape)
+    return y.redistribute(dm, y.placements)
 
 
 def _chunked_causal(q, k, v, cfg: ModelConfig, *, window: int | None, q_chunk: int,
                     out_dtype) -> torch.Tensor:
     """Chunked-causal attention core shared by ``attn_forward`` and
     ``attn_prefill``: q (B, S, H, Dh), k/v (B, S, Hkv, Dh) → (B, S, H·Dh)
-    before the output projection, one query chunk at a time so peak memory
-    is O(B·H·q_chunk·S).  A chunk of positions [s0, s1) reads keys [0, s1)
-    only (with the window, [s0 − window + 1, s1)): the reference masks the
-    others, and they carry exactly zero weight there.  The last chunk may
-    be shorter than the others."""
+    before the output projection (``_causal_core``).
+
+    Under a mesh q, k and v are pinned head-aligned: the batch on the data
+    axes, the KV heads on the model axis (unevenly if it doesn't divide, see
+    sharding.constrain), so the QKᵀ/AV contractions stay shard-local.  Each
+    (batch row, KV head) attends on its own, so the core then runs on each
+    rank's shards, as the reference's einsums run shard-local under the
+    same constraints."""
     B, S = q.shape[:2]
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // Hkv
+    pol = cfg.sharding_policy
+    head_tp = "tp!" if cfg.attn_head_tp else None
+    k = constrain(k, "dp", None, head_tp, None, policy=pol)
+    v = constrain(v, "dp", None, head_tp, None, policy=pol)
+    q = constrain(_reshape_aligned(q, 2, Hkv, (B, S, Hkv, G, Dh)), "dp", None, head_tp, None,
+                  None, policy=pol)
+    if not is_dtensor(q):
+        return _causal_core(q, k, v, window, q_chunk, out_dtype).reshape(B, S, H * Dh)
+    out = _causal_core(q.to_local(), k.to_local(), v.to_local(), window, q_chunk, out_dtype)
+    out = from_local(out, q.device_mesh, q.placements, q.shape)
+    return _reshape_aligned(out, 2, Hkv, (B, S, H * Dh))
+
+
+def _causal_core(q, k, v, window: int | None, q_chunk: int, out_dtype) -> torch.Tensor:
+    """q (B, S, Hkv, G, Dh), k/v (B, S, Hkv, Dh) → (B, S, Hkv, G, Dh), one
+    query chunk at a time so peak memory is O(B·H·q_chunk·S).  A chunk of
+    positions [s0, s1) reads keys [0, s1) only (with the window, [s0 −
+    window + 1, s1)): the reference masks the others, and they carry
+    exactly zero weight there.  The last chunk may be shorter than the
+    others."""
+    S, Dh = q.shape[1], q.shape[-1]
     scale = softmax_scale(Dh)
     qc = S // max(S // q_chunk, 1)
     outs = []
@@ -76,7 +125,7 @@ def _chunked_causal(q, k, v, cfg: ModelConfig, *, window: int | None, q_chunk: i
         k0 = 0 if window is None else max(0, s0 - window + 1)
         qpos = torch.arange(s0, s1, device=q.device)
         kpos = torch.arange(k0, s1, device=q.device)
-        qblk = q[:, s0:s1].reshape(B, s1 - s0, Hkv, G, Dh).float()
+        qblk = q[:, s0:s1].float()
         kf, vf = k[:, k0:s1].float(), v[:, k0:s1].float()
         logits = torch.einsum("bqhgd,bshd->bhgqs", qblk, kf) * scale
         mask = kpos[None, :] <= qpos[:, None]
@@ -84,7 +133,7 @@ def _chunked_causal(q, k, v, cfg: ModelConfig, *, window: int | None, q_chunk: i
             mask &= kpos[None, :] > (qpos[:, None] - window)
         logits = torch.where(mask, logits, NEG_INF)
         o = torch.einsum("bhgqs,bshd->bqhgd", torch.softmax(logits, dim=-1), vf)
-        outs.append(o.to(out_dtype).reshape(B, s1 - s0, H * Dh))
+        outs.append(o.to(out_dtype))
     return torch.cat(outs, dim=1)
 
 

@@ -79,7 +79,8 @@ def chunked_xent(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor,
     they do not divide raises, as the reference's reshape does), each run
     under ``torch.utils.checkpoint`` so that its (B, c, V) logits are
     recomputed in the backward instead of kept; the output embedding is cast
-    to float32 once, outside the chunks."""
+    to float32 once, outside the chunks (and, under a mesh, gathered whole
+    once there, so that no chunk re-gathers it)."""
     B, S, D = h.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
@@ -88,7 +89,12 @@ def chunked_xent(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor,
     hc = h.reshape(B, nchunk, chunk, D)
     lc = labels.reshape(B, nchunk, chunk)
     mc = mask.reshape(B, nchunk, chunk)
-    emb_f = emb_out.float()
+    # late import: the models and sharding import each other's modules
+    from repro_torch.sharding import constrain
+    emb_f = constrain(emb_out.float(), None, None)
+    # DTensor may leave h a partial sum over the model axis (the output
+    # projections contract a TP-sharded dim); the label gather needs it whole
+    hc = constrain(hc, "dp", None, None, None)
     loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     count = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(nchunk):

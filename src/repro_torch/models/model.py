@@ -43,6 +43,7 @@ from repro_torch.models.common import (
     rmsnorm,
     rope_table,
 )
+from repro_torch.sharding import constrain, from_local, is_dtensor
 
 Params = dict
 PORTED_KINDS = ("attn", "attn_local", "attn_shared", "mamba2", "mlstm", "slstm")
@@ -142,8 +143,30 @@ def active_param_count(cfg: ModelConfig, params: Params) -> int:
 def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Token embeddings times √d_model, the scale computed in the parameter
     dtype as the reference does."""
-    h = params["embed"][tokens]
+    emb = params["embed"]
+    h = _lookup(emb, tokens) if is_dtensor(emb) else emb[tokens]
     return h * torch.sqrt(torch.full((), cfg.d_model, dtype=h.dtype, device=h.device))
+
+
+def _lookup(emb, tokens) -> torch.Tensor:
+    """``emb[tokens]`` for a sharded table (a DTensor) under a mesh: the
+    table gathered whole (as FSDP gathers a weight where it is used) and
+    indexed on each rank's own tokens; the result is placed as the tokens,
+    each row's embedding vector whole.  The table's gradient is each rank's
+    sum over its own tokens: a partial sum over the data axes, the same on
+    the ranks of one data shard.  (DTensor's own index rules do not carry
+    a vocabulary-sharded table's backward on every PyTorch version.)"""
+    from torch.distributed.tensor import Partial, Replicate
+
+    dm = emb.device_mesh
+    if is_dtensor(tokens):
+        tok, pls = tokens.to_local(), list(tokens.placements)
+    else:
+        tok, pls = tokens, [Replicate()] * dm.ndim
+    # the tokens' data split makes the table's gradient partial there
+    grad = [Partial() if pl != Replicate() else Replicate() for pl in pls]
+    table = emb.redistribute(dm, [Replicate()] * dm.ndim).to_local(grad_placements=grad)
+    return from_local(table[tok], dm, pls, (*tokens.shape, emb.shape[1]))
 
 
 def _ffn(kind: str, p: Params, h: torch.Tensor, cfg: ModelConfig
@@ -217,6 +240,7 @@ def _remat_call(policy: str, fn, *args):
 def _superblock(h: torch.Tensor, aux: torch.Tensor, sb: Params, shared: Params,
                 cfg: ModelConfig, sin, cos, q_chunk: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    h = constrain(h, "dp", None, None, policy=cfg.sharding_policy)  # pin the carry
     for j, kind in enumerate(cfg.pattern):
         p = shared if kind == "attn_shared" else sb[f"pos{j}"]
         if kind in _MIXERS:
@@ -242,6 +266,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     (``_remat_call``)."""
     _check_cfg(cfg)
     h = _cond_input(params, tokens, cfg, cond)
+    h = constrain(h, "dp", None, None, policy=cfg.sharding_policy)  # batch on DP axes
     S_tot = h.shape[1]
     sin, cos = rope_table(torch.arange(S_tot, device=h.device), cfg.head_dim,
                           cfg.rope_theta)
@@ -373,11 +398,15 @@ def _block_prefill(kind, p, h, state, cfg, sin, cos, slot_table, q_chunk):
     return _ffn(kind, p, h + y, cfg)[0], state
 
 
-def _run_blocks(params, cache: DecodeCache, h, cfg: ModelConfig, step
-                ) -> tuple[torch.Tensor, DecodeCache]:
-    """Every block in order: ``step(kind, p, h, state) → (h, state)``."""
+def _run_blocks(params, cache: DecodeCache, h, cfg: ModelConfig, step, *,
+                pin_carry: bool = False) -> tuple[torch.Tensor, DecodeCache]:
+    """Every block in order: ``step(kind, p, h, state) → (h, state)``;
+    ``pin_carry`` constrains h at each superblock's start, as the
+    reference's prefill scan does."""
     blocks = {k: list(v) for k, v in cache.blocks.items()}
     for i, sb in enumerate(_unstack(params["blocks"], cfg.n_superblocks)):
+        if pin_carry:
+            h = constrain(h, "dp", None, None, policy=cfg.sharding_policy)
         for j, kind in enumerate(cfg.pattern):
             key = f"pos{j}"
             p = params["shared"] if kind == "attn_shared" else sb[key]
@@ -394,11 +423,12 @@ def prefill_with_cache(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     the fold of all L tokens (bitwise the token loop's); ``slot_table``
     (L, m_r) is required when the cache holds sketched states."""
     _check_cfg(cfg)
-    h = _embed(params, tokens, cfg)
+    h = constrain(_embed(params, tokens, cfg), "dp", None, None,
+                  policy=cfg.sharding_policy)
     L = h.shape[1]
     sin, cos = rope_table(torch.arange(L, device=h.device), cfg.head_dim, cfg.rope_theta)
     h, cache = _run_blocks(params, cache, h, cfg, lambda kind, p, h, st: _block_prefill(
-        kind, p, h, st, cfg, sin, cos, slot_table, q_chunk))
+        kind, p, h, st, cfg, sin, cos, slot_table, q_chunk), pin_carry=True)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _head_logits(h[:, -1], output_embedding(params)), cache
 
@@ -410,7 +440,8 @@ def decode_step(params: Params, cache: DecodeCache, token_t: torch.Tensor, pos: 
     current index; slots: (m_r,) host ints for sketched caches.  Returns
     (logits (B, V) float32, updated cache).  ``use_sketch`` is accepted for
     the reference's signature; each state's type decides its path."""
-    h = _embed(params, token_t[:, None], cfg)
+    h = constrain(_embed(params, token_t[:, None], cfg), "dp", None, None,
+                  policy=cfg.sharding_policy)
     # the position made on the device: a decode step copies nothing from the host
     sin_t, cos_t = rope_table(torch.arange(pos, pos + 1, device=h.device), cfg.head_dim,
                               cfg.rope_theta)

@@ -1,9 +1,10 @@
 """Mixture-of-Experts FFN: top-k routing with sort-based capacity dispatch
-(ported from ``repro.models.moe``, its single-device path).
+(ported from ``repro.models.moe``).
 
 Sort-based (MegaBlocks-flavoured) dispatch keeps memory at O(T·k + E·C·D)
 instead of the O(T·E·C) one-hot combine tensor.  Expert compute is one
-batched product over the (E, C, D) buffer.
+batched product over the (E, C, D) buffer, which shards over the `model`
+axis (expert parallelism, ``_moe_forward_a2a``).
 
 The reference fills the buffer with a scatter-add and combines with another
 (``zeros.at[tok].add``).  On the card a scatter-add with repeated indices
@@ -16,13 +17,16 @@ reference's own order of application).  No float atomics anywhere.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
+from repro_torch._util import tree_map
 from repro_torch.configs.base import MoECfg
 from repro_torch.models.common import PARAM_DTYPE, dense_init
 from repro_torch.models.ffn import ffn_forward, init_ffn
+from repro_torch.sharding import current_mesh, data_axes, from_local, is_dtensor, placements
 
 
 class MoEMetrics(NamedTuple):
@@ -118,7 +122,12 @@ def _combine(ye_flat: torch.Tensor, route: _Route, T: int, dtype) -> torch.Tenso
 def _experts(xe: torch.Tensor, wig: torch.Tensor, wiu: torch.Tensor, wo: torch.Tensor,
              dtype) -> torch.Tensor:
     """SwiGLU of every expert on its (C, D) rows: (E, C, D) → (E, C, D), the
-    gate's silu in float32."""
+    gate's silu in float32.  Weights of another dtype than the rows (the
+    bfloat16 experts the expert-parallel path gathers, against float32
+    activations) are promoted with them, as the reference's einsum
+    promotes."""
+    dt = torch.promote_types(xe.dtype, wig.dtype)
+    xe, wig, wiu, wo = (t.to(dt) for t in (xe, wig, wiu, wo))
     g = torch.nn.functional.silu(torch.bmm(xe, wig).float())
     u = torch.bmm(xe, wiu)
     return torch.bmm(g.to(dtype) * u, wo)
@@ -150,13 +159,179 @@ def moe_forward_local(p: dict, h: torch.Tensor, moe: MoECfg
     return out.reshape(B, S, D), MoEMetrics(aux, dropped)
 
 
+def _sizes(h_shape, moe: MoECfg, dp_size: int, M: int) -> tuple[int, int, int]:
+    """(T_loc, T_chunk, C_loc) of the expert-parallel layout: a data shard's
+    tokens, each model rank's disjoint 1/M slice of them, and the capacity
+    of a slice."""
+    B, S, _ = h_shape
+    T_loc = (B // dp_size) * S
+    T_chunk = T_loc // M
+    return T_loc, T_chunk, capacity(T_chunk, moe)
+
+
+def _moe_forward_a2a(p: dict, h, moe: MoECfg, mesh, dp: tuple, ep: str):
+    """Production EP path (GShard/DeepSpeed-MoE pattern) on DTensors, the
+    reference's ``shard_map`` body as local tensors and explicit collectives:
+
+      local dispatch → all_to_all over the expert axis → expert GEMMs →
+      all_to_all back → local combine.
+
+    Tokens never leave their data shard: only the (E, C, D) expert buffer
+    crosses ranks, and only over the `model` (EP) axis.  h is replicated
+    over the model axis, so each model rank dispatches a DISJOINT 1/M slice
+    of its data shard's tokens at C_loc = capacity(T_chunk) (the tokens
+    placed ``Shard(0)`` on the data axes, then on `model`); the combined
+    slices are gathered over `model` again by a redistribute, whose
+    backward hands each rank its own slice's gradient.
+
+    FSDP composition: expert weights arrive (E_loc, D/|dp|, F)-sharded; they
+    are all-gathered over dp in bfloat16 (the reference's explicit cast, half
+    the bytes of float32), and their gradients, partial sums over the data
+    ranks' tokens, come back reduce-scattered (``grad_placements``
+    ``Partial`` on the data axes); the router's gradient sums over every
+    rank.  aux and dropped are averaged over all axes.  Returns (out (B, S,
+    D), aux, dropped) as DTensors."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Replicate
+
+    B, S, D = h.shape
+    E, K = moe.n_experts, moe.top_k
+    M = mesh.shape[ep]
+    E_loc = E // M
+    dp_size = math.prod(mesh.shape[a] for a in dp)
+    _, T_chunk, C_loc = _sizes(h.shape, moe, dp_size, M)
+    dm = mesh.device_mesh
+    dp_spec = None if not dp else dp[0] if len(dp) == 1 else dp
+    tok_spec = (dp_spec, None)
+    chunk_spec = ((*dp, ep), None)          # a data shard's tokens, split over model
+    x = h.redistribute(dm, placements(mesh, (dp_spec, None, None))).reshape(B * S, D)
+    x = x.redistribute(dm, placements(mesh, chunk_spec))
+    rep = [Replicate()] * len(mesh.axis_names)
+    router = p["router"].float().redistribute(dm, rep).to_local(
+        grad_placements=[Partial()] * len(mesh.axis_names))
+
+    def expert_weight(name):
+        # ZeRO-3 gather over dp, explicitly bfloat16 on the wire
+        w = p[name].to(torch.bfloat16) if dp else p[name]
+        pl = placements(mesh, (ep, None, None))
+        grad = [Partial() if a in dp else q for a, q in zip(mesh.axis_names, pl)]
+        return w.redistribute(dm, pl).to_local(grad_placements=grad)
+
+    wig, wiu, wo = (expert_weight(n) for n in ("wi_gate", "wi_up", "wo"))
+    group = mesh.group(ep)
+
+    def a2a(t):
+        # (M, ...) → (M, ...): block m goes to model rank m, block m of the
+        # result came from rank m (its own transpose, which keeps the VJP's
+        # shapes aligned)
+        return funcol.all_to_all_single_autograd(t.contiguous(), None, None, group)
+
+    xl = x.to_local()
+    xe, route = _dispatch(xl, router, moe, C_loc)                  # (E, C_loc, D)
+    # dispatch a2a: (M·E_loc, C_loc, D) → (E_loc, M·C_loc, D)
+    xe = a2a(xe.reshape(M, E_loc, C_loc, D))
+    xe = xe.transpose(0, 1).reshape(E_loc, M * C_loc, D)
+    ye = _experts(xe, wig, wiu, wo, xl.dtype)                      # (E_loc, M·C_loc, D)
+    # combine a2a: back to (E, C_loc, D) on the source rank
+    ye = a2a(ye.reshape(E_loc, M, C_loc, D).transpose(0, 1))
+    out = _combine(ye.reshape(E * C_loc, D), route, T_chunk, xl.dtype)
+    aux, dropped = _metrics(route, E, T_chunk, K)
+    out = from_local(out, dm, placements(mesh, chunk_spec), (B * S, D))
+    # restore the replicated-over-model activation layout
+    out = out.redistribute(dm, placements(mesh, tok_spec)).reshape(B, S, D)
+    n = dp_size * M
+    part = [Partial()] * len(mesh.axis_names)
+    aux, dropped = (from_local(t, dm, part, ()).redistribute(dm, rep) / n
+                    for t in (aux, dropped))
+    return out, aux, dropped
+
+
+def moe_forward_a2a_plain(p: dict, h: torch.Tensor, moe: MoECfg, dp_size: int, M: int
+                          ) -> tuple[torch.Tensor, MoEMetrics]:
+    """What the expert-parallel path computes on a mesh of ``dp_size`` data
+    ranks (the product of the data axes larger than 1) and ``M`` model
+    ranks, in one process on whole tensors: the B·S tokens cut into
+    dp_size·M slices in rank order, each dispatched at C_loc =
+    capacity(T_chunk); a data shard's M buffers concatenated per expert
+    (E, M·C_loc, D) through one expert GEMM, as the a2a lays them out; each
+    slice combined from its columns; aux and dropped averaged over the
+    slices.  The expert weights are cast to bfloat16 once when dp_size > 1
+    (the reference gathers them so, float32 parameters included).  A
+    reference for the tests and the card's ranks; the model does not call
+    it."""
+    B, S, D = h.shape
+    E, K = moe.n_experts, moe.top_k
+    _, T_chunk, C_loc = _sizes(h.shape, moe, dp_size, M)
+    x = h.reshape(B * S, D)
+    router = p["router"].float()
+    ws = [p[n] for n in ("wi_gate", "wi_up", "wo")]
+    if dp_size > 1:
+        ws = [w.to(torch.bfloat16) for w in ws]
+    outs, auxs, drops = [], [], []
+    for i in range(dp_size):
+        xes, routes = [], []
+        for j in range(M):
+            c = i * M + j
+            xe, route = _dispatch(x[c * T_chunk:(c + 1) * T_chunk], router, moe, C_loc)
+            xes.append(xe)
+            routes.append(route)
+        ye = _experts(torch.cat(xes, dim=1), *ws, h.dtype)         # (E, M·C_loc, D)
+        for j, route in enumerate(routes):
+            ye_j = ye[:, j * C_loc:(j + 1) * C_loc].reshape(E * C_loc, D)
+            outs.append(_combine(ye_j, route, T_chunk, h.dtype))
+            aux, dropped = _metrics(route, E, T_chunk, K)
+            auxs.append(aux)
+            drops.append(dropped)
+    out = torch.cat(outs).reshape(B, S, D)
+    if moe.dense_residual:
+        out = out + ffn_forward(p["dense"], x).reshape(B, S, D)
+    n = dp_size * M
+    return out, MoEMetrics(sum(auxs) / n, sum(drops) / n)
+
+
+def _moe_forward_replicated(p: dict, h, moe: MoECfg, mesh
+                            ) -> tuple[torch.Tensor, MoEMetrics]:
+    """The single-device path under a mesh, on DTensors: h and the weights
+    gathered whole on every rank, the dispatch over all T tokens (the
+    reference's global semantics under GSPMD), the results replicated.  On a
+    mesh of one rank nothing moves."""
+    from torch.distributed.tensor import Replicate
+
+    dm = mesh.device_mesh
+    rep = [Replicate()] * len(mesh.axis_names)
+    out, (aux, dropped) = moe_forward_local(
+        tree_map(lambda t: t.redistribute(dm, rep).to_local(), p),
+        h.redistribute(dm, rep).to_local(), moe)
+    out, aux, dropped = (from_local(t, dm, rep, t.shape) for t in (out, aux, dropped))
+    return out, MoEMetrics(aux, dropped)
+
+
+def _use_a2a(moe: MoECfg, B: int, S: int, D: int, dp_size: int, M: int) -> bool:
+    """Whether a mesh of ``dp_size`` data and ``M`` > 1 model ranks takes the
+    expert-parallel path: the reference's divisibility conditions."""
+    return (M > 1 and moe.n_experts % M == 0 and B % dp_size == 0 and D % dp_size == 0
+            and ((B // dp_size) * S) % M == 0)
+
+
 def moe_forward(p: dict, h: torch.Tensor, moe: MoECfg) -> tuple[torch.Tensor, MoEMetrics]:
     """h: (B, S, D) → (B, S, D).  Capacity-dropped tokens pass through (residual).
 
     Uses the a2a expert-parallel path when running under a mesh with a
-    non-trivial `model` axis and divisible shapes; otherwise the local path."""
-    # The port has no mesh with a `model` axis (launch/mesh.py raises for
-    # n_model > 1): the expert-parallel path, _moe_forward_a2a, waits for the
-    # 2-D parameter mesh (ROADMAP queue 1, "2-D parameter mesh"), so this is
-    # always local.
-    return moe_forward_local(p, h, moe)
+    non-trivial `model` axis and divisible shapes; otherwise the local path
+    (on whole tensors under a mesh).  Outside a mesh, and on a tensor that
+    is not a DTensor, the single-device path."""
+    B, S, D = h.shape
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(h):
+        return moe_forward_local(p, h, moe)
+    use_a2a = False
+    if "model" in mesh.shape and mesh.shape["model"] > 1:
+        M = mesh.shape["model"]
+        dp = tuple(a for a in data_axes(mesh) if mesh.shape[a] > 1)
+        use_a2a = _use_a2a(moe, B, S, D, math.prod(mesh.shape[a] for a in dp), M)
+    if use_a2a:
+        out, aux, dropped = _moe_forward_a2a(p, h, moe, mesh, dp, "model")
+        if moe.dense_residual:
+            out = out + ffn_forward(p["dense"], h.reshape(B * S, D)).reshape(B, S, D)
+        return out, MoEMetrics(aux, dropped)
+    return _moe_forward_replicated(p, h, moe, mesh)

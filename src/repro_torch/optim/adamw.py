@@ -8,6 +8,9 @@ warms up linearly, then decays on a cosine; norms, biases and 1-D leaves
 take no weight decay (by the same path names).  ``torch.optim.AdamW`` is
 not used: it keeps no master copy and decays every parameter it is given.
 
+On a 2-D mesh the leaves are DTensors and every operation runs on the
+shards; the global norm's sums reduce over the mesh.
+
 The state is donated, as the reference's jitted step donates it:
 ``adamw_update`` writes the new ``m``, ``v`` and ``master`` into the given
 state's tensors, one leaf at a time, so the float32 state (12 bytes a
@@ -65,9 +68,10 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def init_adamw(params: PyTree) -> AdamWState:
     """Zero moments and a float32 copy of every parameter (a copy even of a
-    float32 leaf, so that the master never aliases a parameter)."""
+    float32 leaf, so that the master never aliases a parameter).  Sharded
+    parameters (DTensors) give state placed as they are (ZeRO-1)."""
     def zeros(t):
-        return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+        return torch.zeros_like(t, dtype=torch.float32)
 
     return AdamWState(torch.zeros((), dtype=torch.int32), tree_map(zeros, params),
                       tree_map(zeros, params),

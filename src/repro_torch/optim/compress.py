@@ -25,6 +25,7 @@ from repro_torch._util import COMPRESS_STREAM, position_generator, tree_leaves, 
 from repro_torch.core.apply import sketch_left, unsketch_mat
 from repro_torch.core.distributed import all_reduce_mean
 from repro_torch.core.sketch import AccumSketch, make_accum_sketch
+from repro_torch.sharding import distribute_like, full
 
 PyTree = Any
 
@@ -72,25 +73,33 @@ def compress_leaf(sk: AccumSketch, g: torch.Tensor, e: torch.Tensor, mesh=None
 
 
 def compress_grads(grads: PyTree, ef: PyTree, step: int, seed: int, cfg: CompressConfig,
-                   *, mesh=None) -> tuple[PyTree, PyTree, dict]:
+                   *, mesh=None, like: PyTree | None = None) -> tuple[PyTree, PyTree, dict]:
     """Returns (the gradients, eligible leaves through ``compress_leaf`` and
     the others as they are — every leaf averaged over ``mesh``'s ranks when
     given —, the new error-feedback tree, {"compress_ratio": the bytes sent
-    over the bytes of the uncompressed float32 gradients})."""
+    over the bytes of the uncompressed float32 gradients}).  With ``like``
+    (the parameters, DTensors on a 2-D mesh), each gradient leaf is gathered
+    whole, compressed and placed back as its parameter is before the next
+    one is gathered, so that a rank holds one whole gradient leaf at a
+    time."""
     out, new_ef = [], []
     bytes_full = bytes_comp = 0
+    likes = None if like is None else tree_leaves(like)
     for i, (g, e) in enumerate(zip(tree_leaves(grads), tree_leaves(ef))):
         bytes_full += g.numel() * 4
+        if likes is not None:
+            g = full(g)
         if e is None or not _eligible(g, cfg):
-            out.append(g if mesh is None else all_reduce_mean(g, mesh))
+            o = g if mesh is None else all_reduce_mean(g, mesh)
             new_ef.append(None)
             bytes_comp += g.numel() * 4
-            continue
-        sk = leaf_sketch(seed, int(step), i, g.shape[0], cfg, g.device)
-        o, e_new = compress_leaf(sk, g, e, mesh)
-        out.append(o)
-        new_ef.append(e_new)
-        bytes_comp += sk.d * (g.numel() // g.shape[0]) * 4
+        else:
+            sk = leaf_sketch(seed, int(step), i, g.shape[0], cfg, g.device)
+            o, e_new = compress_leaf(sk, g, e, mesh)
+            new_ef.append(e_new)
+            bytes_comp += sk.d * (g.numel() // g.shape[0]) * 4
+        out.append(o if likes is None else distribute_like(o, likes[i]))
+        del g, o
     it_out, it_ef = iter(out), iter(new_ef)
     return (tree_map(lambda _: next(it_out), grads), tree_map(lambda _: next(it_ef), grads),
             {"compress_ratio": bytes_comp / max(bytes_full, 1)})

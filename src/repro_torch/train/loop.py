@@ -27,6 +27,7 @@ from repro_torch._util import tree_leaves
 from repro_torch.checkpoint.ckpt import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, global_batch, host_batch
+from repro_torch.sharding import Mesh
 from repro_torch.train.step import TrainConfig, TrainState, train_step
 
 
@@ -76,18 +77,22 @@ def run(cfg: ModelConfig, tc: TrainConfig, dc: DataConfig, lc: LoopConfig, *,
     """Train from ``init_params_fn()`` (or the newest checkpoint under
     ``lc.ckpt_dir``) to ``lc.total_steps``.  ``step_fn(state, tokens,
     labels, step) → (state, metrics)`` defaults to ``train_step``.  With a
-    ``mesh`` of D ranks each rank takes its host's slice of the batch, and
-    with D > 1 keeps its checkpoints (its own error feedback included) under
-    ``ckpt_dir/rank<r>``.  Batches land on the parameters' device."""
+    data mesh (``DataMesh``) of D ranks each rank takes its host's slice of
+    the batch; on a 2-D mesh (``sharding.Mesh``) each rank makes the global
+    batch and ``train_step`` keeps its ``batch_spec`` shard.  On either with
+    D > 1 ranks each rank keeps its checkpoints (its own error feedback, or
+    its shards, included) under ``ckpt_dir/rank<r>``.  Batches land on the
+    parameters' device."""
     if init_params_fn is None:
         raise ValueError("provide init_params_fn")
     state = init_params_fn()
     device = tree_leaves(state.params)[0].device
-    if mesh is not None:
+    per_host = mesh is not None and not isinstance(mesh, Mesh)
+    if per_host:
         dc = dataclasses.replace(dc, n_hosts=mesh.size, host_id=mesh.rank)
 
     def batch(step):
-        if mesh is None:
+        if not per_host:
             return global_batch(dc, step, device=device)
         return host_batch(dc, step, device=device)
 

@@ -9,6 +9,16 @@ averaged over the ranks (``core.distributed.all_reduce``: the data axis
 pjit reduces implicitly in the reference) — with compression, eligible
 leaves through ``compress_leaf`` and the rest as they are.  AdamW then runs
 replicated, so the ranks' parameters stay bitwise equal.
+
+On a 2-D ``sharding.Mesh`` the state is DTensors placed by the reference's
+rules (``place_train_state``: ``params_shardings``, ZeRO-1
+``opt_shardings``, the error feedback replicated) and the batch
+``batch_spec``-sharded; the step runs inside ``with mesh:``, each gradient
+is redistributed to its parameter's placements — the data-parallel mean is
+the one DTensor's reductions imply, as pjit's is — and AdamW updates the
+shards.  Compression sketches each gradient whole (the replicated error
+feedback's layout, the reference's global arrays) and keeps the result's
+shard.
 """
 from __future__ import annotations
 
@@ -23,6 +33,16 @@ from repro_torch.core.distributed import all_reduce_mean
 from repro_torch.models.model import loss_fn
 from repro_torch.optim.adamw import AdamWConfig, AdamWState, adamw_update, init_adamw
 from repro_torch.optim.compress import CompressConfig, compress_grads, init_error_feedback
+from repro_torch.sharding import (
+    Mesh,
+    batch_spec,
+    distribute,
+    full,
+    is_dtensor,
+    opt_shardings,
+    params_shardings,
+    shard_tree,
+)
 
 PyTree = Any
 
@@ -57,6 +77,19 @@ def init_train_state(params: PyTree, tc: TrainConfig) -> TrainState:
     return TrainState(params, init_adamw(params), ef)
 
 
+def place_train_state(state: TrainState, mesh: Mesh, policy: str = "default") -> TrainState:
+    """A whole (unsharded) state on ``mesh``: the parameters placed by
+    ``params_shardings``, the AdamW state by ``opt_shardings`` (m, v and
+    master inherit the parameters' specs, the step stays on the host), the
+    error feedback replicated (a whole tensor on every rank, as the
+    reference places it)."""
+    psh = params_shardings(mesh, state.params, policy)
+    osh = opt_shardings(mesh, state.opt, psh)
+    opt = type(state.opt)(state.opt.step, *(shard_tree(t, mesh, sh) for t, sh in
+                                              zip(state.opt[1:], osh[1:])))
+    return TrainState(shard_tree(state.params, mesh, psh), opt, state.ef)
+
+
 def _value_and_grad(params, tokens, labels, cond, cfg: ModelConfig, tc: TrainConfig):
     """(loss, metrics, gradients in the parameters' dtypes) of one batch."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
@@ -79,8 +112,7 @@ def _grads(params, tokens, labels, cond, cfg: ModelConfig, tc: TrainConfig):
     if B % tc.n_micro:
         raise ValueError(f"batch {B} does not split into {tc.n_micro} microbatches")
     mb = B // tc.n_micro
-    acc = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device),
-                   params)
+    acc = tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32), params)
     loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for k in range(tc.n_micro):
         sl = slice(k * mb, (k + 1) * mb)
@@ -99,6 +131,8 @@ def train_step(state: TrainState, tokens: torch.Tensor, labels: torch.Tensor, st
     its optimizer and error-feedback tensors are updated in place.  Returns
     (the new state, {"loss" (averaged over the mesh), "xent", "aux",
     "tokens", ["compress_ratio"], "grad_norm", "lr"})."""
+    if isinstance(mesh, Mesh):
+        return _train_step_sharded(state, tokens, labels, step, cfg, tc, cond, mesh)
     if mesh is not None and mesh.size == 1:
         mesh = None                      # the mean over one rank is the identity
     loss, mets, grads = _grads(state.params, tokens, labels, cond, cfg, tc)
@@ -112,3 +146,37 @@ def train_step(state: TrainState, tokens: torch.Tensor, labels: torch.Tensor, st
         grads = tree_map(lambda g: all_reduce_mean(g, mesh), grads)
     new_params, new_opt, omets = adamw_update(grads, state.opt, tc.optimizer)
     return TrainState(new_params, new_opt, ef), {"loss": loss, **mets, **omets}
+
+
+def _train_step_sharded(state: TrainState, tokens, labels, step: int, cfg: ModelConfig,
+                        tc: TrainConfig, cond, mesh: Mesh) -> tuple[TrainState, dict]:
+    """``train_step`` on a 2-D mesh: the state DTensors, (tokens, labels)
+    the global batch (DTensors, or whole tensors placed here by
+    ``batch_spec``).  The metrics come back as whole tensors."""
+    def like_param(g, p):
+        return g if list(g.placements) == list(p.placements) else g.redistribute(
+            p.device_mesh, p.placements)
+
+    def placed(t):
+        if t is None or is_dtensor(t):
+            return t
+        return distribute(t, mesh, batch_spec(mesh, t.shape[0], extra_dims=t.ndim - 1,
+                                              policy=cfg.sharding_policy))
+
+    tokens, labels, cond = placed(tokens), placed(labels), placed(cond)
+    with mesh:
+        loss, mets, grads = _grads(state.params, tokens, labels, cond, cfg, tc)
+        # a gradient's partial sums over the data ranks reduce here (the
+        # data-parallel mean of the global batch's loss)
+        it = iter(tree_leaves(state.params))
+        grads = tree_map(lambda g: like_param(g, next(it)), grads)
+        ef = state.ef
+        if tc.compress is not None:
+            # each leaf gathered whole, compressed against the replicated
+            # error feedback and placed back, one leaf at a time
+            grads, ef, cmets = compress_grads(grads, ef, step, tc.seed, tc.compress,
+                                              like=state.params)
+            mets = {**mets, **cmets}
+        new_params, new_opt, omets = adamw_update(grads, state.opt, tc.optimizer)
+    mets = {k: full(v) for k, v in {"loss": loss, **mets, **omets}.items()}
+    return TrainState(new_params, new_opt, ef), mets

@@ -140,3 +140,20 @@ def test_port_exports_every_name_the_reference_exports(package):
     missing = {n for n in ref - port if (package, n) not in EXPORT_EXCEPTIONS}
     assert not missing, f"repro_torch.{package} lacks {sorted(missing)}"
     assert all(n in ref for p, n in EXPORT_EXCEPTIONS if p == package)
+
+
+def _module_defs(path: Path) -> list[str]:
+    """The functions and classes a module defines at its top level."""
+    return [n.name for n in ast.parse(path.read_text()).body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+
+
+@pytest.mark.parametrize("module,name", [
+    *(("sharding", n) for n in _module_defs(ROOT / "src" / "repro" / "sharding.py")),
+    *(("launch.mesh", n) for n in _module_defs(ROOT / "src" / "repro" / "launch" / "mesh.py"))],
+    ids=lambda v: v)
+def test_port_defines_every_name_the_reference_sharding_defines(module, name):
+    import importlib
+
+    port = importlib.import_module(f"repro_torch.{module}")
+    assert callable(getattr(port, name, None)), f"repro_torch.{module} lacks {name}"

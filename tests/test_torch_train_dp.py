@@ -21,6 +21,12 @@ same on both ranks and in the test process) on its half of the batch.
   and MASTER_ADDR/PORT in the environment, ``--mesh debug``,
   ``--compress``) makes the group, trains, checkpoints under ``rank<r>``,
   resumes, and destroys the group.
+
+The steps and the launcher run in two spawns of their own (two fixtures),
+so that a hang fails the tests of one and not of both.  The launcher's two
+runs rendezvous on 127.0.0.1 (no name lookup) at two ports of their own: a
+rank that starts the second run before its peer has torn the first group
+down would otherwise join the old store and wait there.
 """
 from __future__ import annotations
 
@@ -88,12 +94,13 @@ def _arrays(state) -> dict:
 # the worker
 # --------------------------------------------------------------------------- #
 
-def _worker(rank: str, store: str, base: str, port: str) -> int:
-    from repro_torch.core.distributed import make_data_mesh
-    from repro_torch.launch import train as launch_train
-
+def _worker(mode: str, rank: str, store: str, base: str, *ports: str) -> int:
     rank, base = int(rank), Path(base)
     torch.set_num_threads(1)
+    if mode == "launch":
+        return _launch_worker(rank, base, ports)
+    from repro_torch.core.distributed import make_data_mesh
+
     torch.distributed.init_process_group(
         "gloo", store=torch.distributed.FileStore(store, WORLD), rank=rank,
         world_size=WORLD, timeout=timedelta(seconds=60))
@@ -123,22 +130,32 @@ def _worker(rank: str, store: str, base: str, port: str) -> int:
                                    for x in tree_leaves(st.params)]
     finally:
         torch.distributed.destroy_process_group()
-    # the launcher as torchrun starts it: the process group from the
-    # environment (env://), made and destroyed by the launcher; then resumed
+    (base / f"report{rank}.json").write_text(json.dumps(report))
+    return 0
+
+
+def _launch_worker(rank: int, base: Path, ports) -> int:
+    """The launcher as torchrun starts it: the process group from the
+    environment (env://), made and destroyed by the launcher; then resumed,
+    each run at a port of its own."""
+    from repro_torch.launch import train as launch_train
+
+    report = {}
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(WORLD),
-                      MASTER_ADDR="localhost", MASTER_PORT=port)
+                      MASTER_ADDR="127.0.0.1")
     ck = base / "launch_ckpt"
     args = ["--arch", "stablelm-3b", "--reduced", "--device", "cpu", "--batch", "4",
             "--seq", "16", "--compress", "--ckpt-dir", str(ck), "--steps"]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        launch_train.main([*args, "2"])
-        launch_train.main([*args, "3"])
+        for port, steps in zip(ports, ("2", "3")):
+            os.environ["MASTER_PORT"] = port
+            launch_train.main([*args, steps])
     report["launch_out"] = out.getvalue()
     report["launch_steps"] = committed_steps(str(ck / f"rank{rank}"))
     report["group_left"] = torch.distributed.is_initialized()
     report["imports_jax"] = any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
-    (base / f"report{rank}.json").write_text(json.dumps(report))
+    (base / f"launch{rank}.json").write_text(json.dumps(report))
     return 0
 
 
@@ -146,18 +163,16 @@ def _worker(rank: str, store: str, base: str, port: str) -> int:
 # the test process
 # --------------------------------------------------------------------------- #
 
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    base = tmp_path_factory.mktemp("train_dp")
+def _spawn(base: Path, mode: str, *extra: str, report: str) -> list:
+    """Run the worker as WORLD gloo ranks in ``mode``, each with a time
+    limit; return each rank's JSON report ``{report}{rank}.json``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]), OMP_NUM_THREADS="1",
         CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    with socket.socket() as sock:                   # a free port for the launcher's group
-        sock.bind(("localhost", 0))
-        port = str(sock.getsockname()[1])
-    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(base / "store"),
-                               str(base), port], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
+    procs = [subprocess.Popen([sys.executable, __file__, mode, str(r),
+                               str(base / f"store_{mode}"), str(base), *extra], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(WORLD)]
     reports = []
     for r, p in enumerate(procs):
         try:
@@ -166,9 +181,29 @@ def ranks(tmp_path_factory):
             for q in procs:
                 q.kill()
             log = p.communicate()[0]
-        assert p.returncode == 0, f"rank {r} exit {p.returncode}:\n{log[-4000:]}"
-        reports.append(json.loads((base / f"report{r}.json").read_text()))
-    return base, reports
+        assert p.returncode == 0, f"{mode} rank {r} exit {p.returncode}:\n{log[-4000:]}"
+        reports.append(json.loads((base / f"{report}{r}.json").read_text()))
+    return reports
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    base = tmp_path_factory.mktemp("train_dp")
+    return base, _spawn(base, "steps", report="report")
+
+
+@pytest.fixture(scope="module")
+def launched(tmp_path_factory):
+    base = tmp_path_factory.mktemp("train_dp_launch")
+    socks = [socket.socket() for _ in range(2)]     # two free ports, held together
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        ports = [str(sock.getsockname()[1]) for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+    return _spawn(base, "launch", *ports, report="launch")
 
 
 def _close(got, want, tol):
@@ -209,9 +244,8 @@ def test_compressed_ranks_agree_and_keep_their_own_error_feedback(ranks):
         assert not np.array_equal(ef[0][key], ef[1][key])
 
 
-def test_launcher_trains_and_resumes_on_two_ranks(ranks):
-    _, reports = ranks
-    for r in reports:
+def test_launcher_trains_and_resumes_on_two_ranks(launched):
+    for r in launched:
         assert r["launch_steps"] == [3, 2]
         assert "ranks=2: ran 2 steps (resumed_from=None)" in r["launch_out"]
         assert "ranks=2: ran 1 steps (resumed_from=2)" in r["launch_out"]
