@@ -159,6 +159,24 @@
         ``moe_forward_local``; one bfloat16 AdamW step of moonshot's sharded
         state: its ms, each rank's state shards and peak memory against the
         reckoned quarter of 14 B a parameter, aux and dropped.
+   Then path (t), the dry run (``dryrun_path``: ``repro_torch.launch.specs``,
+   ``.dryrun``, ``.analysis`` and the rank recorder), once, its launch
+   counts from 0 (only landmark_attention may launch, in (t1)'s real
+   sketched decode):
+   (t1) stablelm-3b at full width cut to 2 superblocks, float32 weights:
+        one training step on 4 × 1024 tokens (``remat="full"``) and one
+        sketched decode step after an 8192-token prompt, each as a dry run
+        on a one-rank ``"fake"`` group and for real on the card under
+        ``analysis.trace.record``: the same non-view ops in the same order
+        (the decode's kernel and the launcher's buffers left out), the same
+        FLOPs (plus the kernel's stand-in's), the dispatches equal to the
+        launches, and the predicted rise of the allocated bytes within 10%
+        of the rise of ``max_memory_allocated`` over the call;
+   (t2) ``python -m repro_torch.launch.dryrun`` on the 16 × 16 and
+        2 × 16 × 16 meshes of the ``"fake"`` group for an MoE training cell,
+        a prefill, an exact decode and a sketched long-context decode (cut
+        to 2 superblocks), one subprocess a cell, under one time limit: each
+        record printed, any failed cell failing the path.
 4. Prints one ``{"kernels": [...]}`` line (with each kernel's device ms
    summed on the paths of pass 3, (m), (n1) and (p1)), the card line, and as the
    last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -289,6 +307,22 @@ S_CPU_BATCH_SEQ = (2, 256)
 # them, at one bfloat16 step (2⁻⁸ ≈ 3.9e-3; the largest seen 5.30e-4), since
 # a sum that lands on a rounding boundary flips its last bit
 S_TOL, S_EXPERT_TOL = 1e-4, 2.0 ** -8
+# path (t), the dry run: (t1) stablelm-3b at full width cut to T_SB
+# superblocks (2 of its 32 layers), float32 weights from seed 0, one
+# training step on T_BATCH × T_SEQ tokens at remat="full" (the sizes of
+# (s1)) and one sketched decode step at batch 1 after a T_PROMPT-token
+# prompt, each run for real and as a dry run on a one-rank "fake" group;
+# the dry run's predicted rise of the allocated bytes held to T_PEAK_TOL of
+# the measured one.  (t2) the dry run's command line on both production
+# meshes, one subprocess a cell, all started together under one time limit,
+# each config cut to T2_SB superblocks (the full depth is the sweep's,
+# PERF.md §5): an MoE training cell (the expert-parallel all-to-all), a
+# prefill, an exact decode and a sketched long-context decode (the kernel's
+# dry-run stand-in)
+T_ARCH, T_SB, T_BATCH, T_SEQ, T_PROMPT, T_PEAK_TOL = "stablelm-3b", 2, 4, 1024, 8192, 0.10
+T2_CELLS = (("moonshot-v1-16b-a3b", "train_4k"), ("minitron-8b", "prefill_32k"),
+            ("qwen1.5-110b", "decode_32k"), ("zamba2-7b", "long_500k"))
+T2_SB, T2_TIMEOUT = 2, 300
 
 SRC = "src/repro_torch/kernels/accum_apply/csrc/accum_apply.cu"
 LSRC = "src/repro_torch/kernels/landmark_attention/csrc/landmark_attention.cu"
@@ -1988,6 +2022,216 @@ def mesh2d_path(torch, dev, smi: str, *, batch_seq=S_CPU_BATCH_SEQ,
     print(f"  (s) {time.perf_counter() - t_all:.1f} s")
 
 
+def dryrun_path(torch, dev, smi: str, *, cfg=None, train=(T_BATCH, T_SEQ), prompt=T_PROMPT,
+                cells=T2_CELLS, superblocks=T2_SB, timeout: float = T2_TIMEOUT) -> None:
+    """Path (t), the dry run (``repro_torch.launch.specs``, ``.dryrun``,
+    ``.analysis`` and the rank recorder ``analysis.trace.record_rank``).
+
+    (t1) The dry run held against a real run on the card.  ``cfg``
+    (stablelm-3b at full width cut to T_SB superblocks), float32 weights
+    from seed 0: one training step (``train`` tokens, ``remat="full"``) and
+    one sketched decode step at batch 1 after a ``prompt``-token prompt
+    (``landmark_attention``'s decode sweep on each layer), each built by
+    ``launch.specs`` on a one-rank ``"fake"`` group and run twice: as a dry
+    run on fake tensors, and for real on the card (its arguments drawn
+    alike, a warm-up first) under ``analysis.trace.record``.  The two
+    recordings hold the same non-view ops in the same order and the same
+    FLOPs; in the decode step the kernel's launch is no aten op, so the dry
+    run's stand-in op (charged the kernel's two products) stands for it,
+    and the launcher's own buffers (``empty``) are left out of the real
+    run's list, as allocations are of the dry run's; the stand-ins, the
+    router's dispatches and the kernel's launches agree.  The dry run's
+    predicted rise of the allocated bytes over the call (its peak less its
+    arguments) within T_PEAK_TOL of the rise of
+    ``torch.cuda.max_memory_allocated`` over the real call.
+    (t2) The production meshes: ``python -m repro_torch.launch.dryrun`` on
+    both meshes for each of ``cells`` (``superblocks`` superblocks), one
+    subprocess a cell, started together under one time limit; each
+    record printed (ok, seconds, FLOPs, HBM bytes, collective bytes by
+    kind, the peak a rank against the card's 80 GB, the dominant term,
+    ``useful_fraction``), and any failed cell fails the path."""
+    import tempfile as tf
+
+    from repro_torch.analysis.trace import record, record_rank
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import sketched_attention as SA
+    from repro_torch.core.sketched_attention import decode_slot_table, decode_slots
+    from repro_torch.kernels.landmark_attention import kernel as LK
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.analysis import ALLOCATIONS, analyze
+    from repro_torch.models.model import init_cache, init_params, prefill_with_cache
+    from repro_torch.sharding import make_mesh
+    from repro_torch.train.step import TrainConfig, init_train_state
+
+    t_all = time.perf_counter()
+    cfg = cfg or SP.cut(get_config(T_ARCH), T_SB)
+    (B, S), f32, cuda = train, torch.float32, dev.type == "cuda"
+    tc = TrainConfig(n_micro=1, remat="full")
+    sa = cfg.sketch_attn
+    check(not torch.distributed.is_initialized(),
+          "(t) no process group is left from the earlier paths")
+
+    # ---- (t1) the dry runs, on a one-rank fake group ------------------------
+    DR.start_fake_group(1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        built = {"train": SP.train_cell(cfg, ShapeSpec("train", S, B, "train"), mesh, tc,
+                                        device=dev.type, dtype=f32),
+                 "decode": SP.decode_cell(cfg, ShapeSpec("decode", prompt + 1, 1, "decode"),
+                                          mesh, sketch=True, device=dev.type, dtype=f32)}
+        dry, dry_s = {}, {}
+        for name, cell in built.items():
+            t0 = time.perf_counter()
+            with mesh:
+                dry[name] = record_rank(cell.fn, *cell.args, fake_mode=cell.fake_mode,
+                                        device=dev)
+            dry_s[name] = time.perf_counter() - t0
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # ---- (t1) the real runs, the same step functions ------------------------
+    params = init_params(0, cfg, device=dev, dtype=f32)
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def ints(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, device=dev, dtype=torch.int32,
+                             generator=g)
+
+    tok, lab, prompt_tok, token = ints(B, S), ints(B, S), ints(1, prompt), ints(1)
+    cache = init_cache(cfg, 1, prompt + 1, use_sketch=True, device=dev)
+    _, cache = prefill_with_cache(params, prompt_tok, cfg, cache, slot_table=decode_slot_table(
+        0, prompt, sa.d_slots, sa.m_r))
+    step = built["train"].args[3]
+    pos, slots = built["decode"].args[3:]
+    # warm-ups (cuBLAS's workspace, the autotune cache's first call; the
+    # decode at another position, so that its fold schedule is made anew)
+    built["train"].fn(init_train_state(params, tc), tok, lab, step)
+    built["decode"].fn(params, cache, token, SP._host_scalar(prompt - 1),
+                       decode_slots(0, prompt - 1, sa.d_slots, sa.m_r))
+    calls = {"train": lambda: (init_train_state(params, tc), tok, lab, step),
+             "decode": lambda: (params, cache, token, pos, slots)}
+    real, rise, real_s, launched = {}, {}, {}, {}
+    for name, cell in built.items():
+        args = calls[name]()
+        # the fold's schedule is cached by slot table: an earlier path's
+        # sketched decode at this position made it, and the dry run makes
+        # its own once; so the real run makes it once too
+        SA._fold_rounds.cache_clear()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        n0 = LK.landmark_attention.launches
+        t0 = time.perf_counter()
+        real[name] = record(cell.fn, *args)
+        if cuda:
+            torch.cuda.synchronize()
+            rise[name] = torch.cuda.max_memory_allocated() - base
+        real_s[name] = time.perf_counter() - t0
+        launched[name] = LK.landmark_attention.launches - n0
+        del args
+
+    loss = real["train"].result[1]["loss"]
+    logits = real["decode"].result[0]
+    check(bool(torch.isfinite(loss)) and bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (1, cfg.vocab_size),
+          f"(t1) the real runs' loss {loss.item():.6f} and decode logits "
+          f"{tuple(logits.shape)} finite")
+    for name in built:
+        d, r = dry[name], real[name]
+        stand_in = [ev for ev in d.ops if ev.namespace == "repro_torch"]
+        dn = [ev.name for ev in d.ops if not ev.view and ev.namespace != "repro_torch"]
+        rn = [ev.name for ev in r.ops if not ev.view]
+        if stand_in or launched[name]:
+            dn = [n for n in dn if n not in ALLOCATIONS]
+            rn = [n for n in rn if n not in ALLOCATIONS]
+        charged = sum(ev.flops for ev in stand_in)
+        roof = analyze(d)
+        print(f"  (t1) {name}: dry run {len(d.ops)} ops ({sum(not e.view for e in d.ops)} "
+              f"non-view), {d.flops:.6e} FLOPs ({charged:.6e} of them the kernel's "
+              f"stand-ins), {len(d.routes)} dispatches, {dry_s[name]:.2f} s; real run "
+              f"{len(r.ops)} ops ({sum(not e.view for e in r.ops)} non-view), "
+              f"{r.flops:.6e} FLOPs, {len(r.routes)} dispatches, {launched[name]} kernel "
+              f"launches, {real_s[name]:.2f} s (recorded)")
+        check(dn == rn, f"(t1) {name}: the dry run's {len(dn)} non-view ops are the real "
+                        f"run's {len(rn)}, in order"
+                        + (" (allocations and the kernel left out)" if charged else ""))
+        if dn != rn:
+            import difflib
+
+            for tag, i0, i1, j0, j1 in difflib.SequenceMatcher(None, dn, rn).get_opcodes():
+                if tag != "equal":
+                    print(f"    {tag} at {i0}/{j0}: dry {dn[i0:i1]} real {rn[j0:j1]}")
+        check(d.flops == r.flops + charged and r.flops > 0,
+              f"(t1) {name}: dry-run FLOPs {d.flops:.6e} = real {r.flops:.6e} + the "
+              f"kernel's {charged:.6e}")
+        # on the CPU the router sends the tensors to the plain version
+        check(d.routes == r.routes and (not cuda or len(stand_in) == len(d.routes)
+                                        == launched[name])
+              and (launched[name] > 0) == (name == "decode" and cuda),
+              f"(t1) {name}: {len(stand_in)} stand-ins, {len(d.routes)} dry and "
+              f"{len(r.routes)} real dispatches, {launched[name]} launches")
+        pred = d.peak_bytes - d.arg_bytes
+        if cuda:
+            err = abs(pred - rise[name]) / max(rise[name], 1)
+            check(err <= T_PEAK_TOL,
+                  f"(t1) {name}: predicted rise {pred / 1e9:.4f} GB (peak "
+                  f"{d.peak_bytes / 1e9:.4f} GB less the arguments' {d.arg_bytes / 1e9:.4f}) "
+                  f"against the measured rise of max_memory_allocated "
+                  f"{rise[name] / 1e9:.4f} GB: {100 * err:.2f}% (tol "
+                  f"{100 * T_PEAK_TOL:.0f}%); card: {smi}")
+        print(f"  (t1) {name}: roofline on the profile {roof.hw.name}: t_compute "
+              f"{roof.t_compute * 1e3:.3f} ms, t_memory {roof.t_memory * 1e3:.3f} ms "
+              f"({roof.hbm_bytes / 1e9:.3f} GB), dominant {roof.dominant}")
+    del params, cache, real, tok, lab
+
+    # ---- (t2) the production meshes ------------------------------------------
+    out_dir = Path(tf.mkdtemp(prefix="chip_smoke_dryrun_"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parent / "src"), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    procs = []
+    for arch, shape in cells:
+        out = out_dir / f"{arch}.{shape}.jsonl"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", "both", "--superblocks", str(superblocks), "--device",
+               dev.type, "--out", str(out)]
+        procs.append((arch, shape, out, subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for arch, shape, out, proc in procs:
+        try:
+            log = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log = proc.communicate()[0]
+        recs = [json.loads(line) for line in out.read_text().splitlines()] if out.exists() else []
+        for rec in recs:
+            if not rec["ok"]:
+                print(f"  (t2) {arch}/{shape} mesh={rec['mesh']}: {rec['error']}")
+                continue
+            print(f"  (t2) {arch}/{shape} mesh={rec['mesh']} ({rec['superblocks']} "
+                  f"superblocks): ok, cell {rec['lower_s']} s, step {rec['compile_s']} s, "
+                  f"{rec['ops']} ops; a rank: {rec['flops']:.4e} FLOPs, "
+                  f"{rec['hbm_bytes']:.4e} HBM bytes, collective bytes "
+                  f"{rec['coll_detail']['bytes']}, peak {rec['peak_mem_bytes'] / 1e9:.2f} of "
+                  f"{rec['hbm_capacity_bytes'] / 1e9:.0f} GB; dominant {rec['dominant']} "
+                  f"(t_comp {rec['t_compute'] * 1e3:.2f} ms, t_mem {rec['t_memory'] * 1e3:.2f} "
+                  f"ms, t_coll {rec['t_collective'] * 1e3:.2f} ms), useful_fraction "
+                  f"{rec['useful_fraction']:.4f}; {rec['hardware']}")
+        ok = (proc.returncode == 0 and [r["mesh"] for r in recs] == ["16x16", "2x16x16"]
+              and all(r["ok"] for r in recs))
+        if not ok:
+            print(log[-3000:])
+        check(ok, f"(t2) {arch}/{shape} on both production meshes: exit {proc.returncode}, "
+                  f"{sum(r['ok'] for r in recs)} of 2 records ok")
+    print(f"  (t2) {len(cells)} cells × 2 meshes in {time.perf_counter() - t0:.1f} s "
+          f"(limit {timeout:.0f} s)")
+    print(f"  (t) {time.perf_counter() - t_all:.1f} s; card: {smi}")
+
+
 def main() -> int:
     """Run the checks and the main path; return the exit code."""
     # path (o) trains deterministically: cuBLAS reads this when CUDA starts
@@ -3395,6 +3639,21 @@ def main() -> int:
     check(not any(launches["mesh2d"].values()),
           f"path (s) launched none of the nine kernels: {launches['mesh2d']}")
 
+    # ---- 13. path (t): the dry run ------------------------------------------ #
+    # once, its launch counts from 0: the real sketched decode step of (t1)
+    # launches landmark_attention (its warm-up and the recorded step), and
+    # nothing else of the port's kernels is on the path
+    print(f"\n== path (t): the dry run (repro_torch.launch.dryrun); card: {smi} ==")
+    torch.cuda.empty_cache()
+    print(f"  device memory held before (t): {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    reset_counts()
+    dryrun_path(torch, dev, smi)
+    launches["dryrun"] = counts()
+    others = {k: v for k, v in launches["dryrun"].items() if k != "landmark_attention" and v}
+    check(launches["dryrun"]["landmark_attention"] > 0 and not others,
+          f"path (t) launched landmark_attention {launches['dryrun']['landmark_attention']} "
+          f"times and no other kernel ({others})")
+
     # device ms on the paths: pass 3's KRR, engine and serving paths and
     # (n1) summed by wrapper under the profiler, and path (m)'s calls timed
     # one by one ((n2)'s ranks are not profiled)
@@ -3411,7 +3670,7 @@ def main() -> int:
               f"{row['library_ms']}); geometry {row.get('geometry')} by "
               f"{row['geometry_by']}")
     # launches: the sum over the main paths of pass 2, path (m), path (n)
-    # (both parts), (o), (p), (q), (r) and (s), each counted from 0
+    # (both parts), (o), (p), (q), (r), (s) and (t), each counted from 0
     kernels = [dict(name=f.__name__, route="cuda", source=SRC if f in KN.KERNELS else LSRC,
                     launches=sum(c[f.__name__] for c in launches.values()),
                     launches_by_path={p: c[f.__name__] for p, c in launches.items()},

@@ -11,10 +11,11 @@ an RNG-lineage checker (the twin of ``repro.analysis``).
   * ``repro_torch.analysis.contracts`` — the per-entry-point budget manifest
     (``contracts.toml``) and its evaluator, on the CPU or on a card;
   * ``repro_torch.analysis.hardware`` — the overridable ``HardwareModel``
-    (default: the H100 the port runs on).
-
-The reference's ``hlo.py`` (lowered-text parsing) has no twin: donation is
-checked on the buffers themselves.
+    (default: the H100 the port runs on);
+  * ``repro_torch.analysis.hlo`` — dtype byte widths and the reference's
+    type strings (``bf16[16,4096]``), which the dry run's per-op records
+    spell (its lowered-text donation check has no twin: donation is checked
+    on the buffers themselves).
 
 Gate: ``python -m repro_torch.analysis check [--device cuda|cpu]``
 (``--update`` ratchets measured peaks downward).  Only ``streams`` and

@@ -31,16 +31,35 @@ wherever its tensor lies (a read of a CPU tensor costs the same dispatch),
 so the count is the same on the CPU and on a card; a copy to the CPU is a
 no-op that dispatches nothing on the CPU, so copies are counted on a card
 alone.
+
+``record_rank`` records ONE RANK's program on a mesh, the op stream the
+dry run (``repro_torch.launch.dryrun``) reckons a roofline from: each op
+at the local shapes a rank computes, with its FLOPs, operand and result
+bytes and result type, and the high-water mark of the bytes its live
+storages hold.  A ``TorchDispatchMode`` sees a DTensor op at its global
+shapes, and DTensor's dispatch runs the rank's local op (after any
+redistribution) inside the mode's own handler, where the mode is off the
+stack.  So the rank recorder declines every op on a tensor subclass other
+than ``FakeTensor`` (returns ``NotImplemented``): the subclass's dispatch
+then runs with the recorder still on the stack, which sees the local op
+and the redistribution's collectives.  DTensor also runs each op once more
+at its global shapes, on fake tensors, to learn the output's metadata
+(``ShardingPropagator._propagate_tensor_meta*``); those calls compute
+nothing on the rank, and the recorder passes them through unrecorded.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import sys
+import weakref
 from typing import Any
 
 import torch
 from torch.utils._pytree import tree_leaves as _leaves
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.analysis.hlo import type_str
 
 #: aten ops (overload packets) whose result the host must wait for: a
 #: device value read on the host, or an output whose size depends on the
@@ -63,26 +82,64 @@ def _storage(t: torch.Tensor) -> int | None:
         return None
 
 
+def _storage_key(t: torch.Tensor) -> int | None:
+    """The identity of ``t``'s storage (also of a fake tensor's, whose data
+    pointer is 0), or None for a tensor without one."""
+    try:
+        return t.untyped_storage()._cdata
+    except (RuntimeError, NotImplementedError, AttributeError):
+        return None
+
+
+def _is_view(func, ins, outs) -> bool:
+    """Whether the op only aliases its inputs: it writes nothing and every
+    tensor it returns shares an input's storage (a view, ``detach``,
+    ``_unsafe_view``, ``split``)."""
+    if func._schema.is_mutable or not outs:
+        return False
+    keys = {_storage_key(t) for t in ins} - {None}
+    return all(_storage_key(t) in keys for t in outs)
+
+
 @dataclasses.dataclass
 class OpEvent:
-    """One dispatched aten op: its name, its outputs (shape, dtype, bytes,
-    whether it shares storage with an input) and its tensor inputs'
-    shapes."""
+    """One dispatched op: its name, its outputs (shape, dtype, bytes,
+    whether it shares storage with an input), its tensor inputs' shapes and
+    whether it only aliases them (``view``).  A rank recording
+    (``record_rank``) also keeps the op's namespace, its product FLOPs, its
+    operand plus result bytes, its results' type string (the reference's
+    syntax, ``analysis.hlo.type_str``) and whether it is host arithmetic
+    (on the program's host values, or every tensor a 0-d CPU tensor: the
+    optimizer's step and schedule, the decode step's slot draw)."""
 
     name: str
     outputs: list
     input_shapes: list
+    view: bool = False
+    namespace: str = "aten"
+    flops: float = 0.0
+    nbytes: int = 0
+    result: str = ""
+    host: bool = False
 
 
 @dataclasses.dataclass
 class Recording:
     """The port's traced program: the ops, router calls and FLOPs of one
-    eager call, and its result."""
+    eager call, and its result.  A rank recording also holds the peak of
+    the bytes its live storages on the recorded device held
+    (``peak_bytes``, the call's arguments counted: ``arg_bytes``) and what
+    held them then: bytes by the op that made each storage ("arguments"
+    for the call's own), taken when the peak last grew by 1%
+    (``peak_by_op``)."""
 
     ops: list = dataclasses.field(default_factory=list)
     routes: list = dataclasses.field(default_factory=list)
     flops: float = 0.0
     result: Any = None
+    peak_bytes: int = 0
+    arg_bytes: int = 0
+    peak_by_op: dict = dataclasses.field(default_factory=dict)
 
 
 class _Recorder(TorchDispatchMode):
@@ -104,7 +161,131 @@ class _Recorder(TorchDispatchMode):
             name,
             [(tuple(t.shape), t.dtype, t.numel() * t.element_size(),
               _storage(t) in in_ptrs) for t in outs],
-            [tuple(t.shape) for t in ins]))
+            [tuple(t.shape) for t in ins], _is_view(func, ins, outs)))
+        return out
+
+
+#: the caching allocator's granule: every block is a multiple of 512 bytes
+ALLOC_GRANULE = 512
+# ops that read a fake tensor's metadata, dispatched only because a fake
+# tensor is a Python subclass: no computation, on a rank or anywhere
+_META_QUERIES = frozenset({"is_same_size", "sym_size", "sym_stride", "sym_numel",
+                           "sym_storage_offset", "sym_is_contiguous"})
+
+
+def _caller() -> str:
+    """The module that called the op being dispatched: the nearer on the
+    Python stack of the program's (a ``repro_torch`` module but this one)
+    and torch.distributed's (DTensor's placement bookkeeping); "" where
+    neither is, as for a program that calls torch from a file of its own."""
+    f = sys._getframe(1)
+    while f is not None:
+        mod = f.f_globals.get("__name__", "")
+        if mod.startswith("torch.distributed") or (
+                mod.startswith("repro_torch") and mod != __name__):
+            return mod
+        f = f.f_back
+    return ""
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class _RankRecorder(TorchDispatchMode):
+    """One rank's ops (see the module's docstring) on the fake tensors of
+    ``fake_mode``, with the live bytes of the storages on ``device`` tracked
+    through a finalizer on each storage (a storage dies when its last
+    tensor, an autograd-saved one included, does).
+
+    The fake mode stays off the mode stack, so that torch.distributed's own
+    bookkeeping (shard offsets it computes with host tensors) runs on real
+    values, and its sharding-propagation cache works.  Each op is then
+    sorted by its inputs:
+
+      * on a tensor subclass other than a fake tensor (a DTensor) —
+        declined, so that the subclass's dispatch runs its local ops under
+        this mode;
+      * on fake tensors of another fake mode — DTensor's sharding
+        propagation (``ShardingPropagator._propagate_tensor_meta*``) runs
+        the op at its global shapes under a mode of its own to learn the
+        output's metadata: passed through, unrecorded;
+      * on the cell's fake tensors — recorded;
+      * on no fake tensor — called by torch.distributed's own code: run as
+        it is, unrecorded; called by the program: on host tensors (the
+        decode step's slot draw, the optimizer's step counter) run as it
+        is, the program's host arithmetic; a factory or a copy to the
+        device run under ``fake_mode``, so that nothing is allocated on the
+        device.  Both are recorded."""
+
+    def __init__(self, rec: Recording, fake_mode, device: torch.device):
+        super().__init__()
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        self.rec, self.fake_mode, self.fake = rec, fake_mode, FakeTensor
+        self.device_type = torch.device(device).type
+        self.live: dict[int, tuple[int, str]] = {}
+        self.held = self.shown = 0
+
+    def hold(self, t: torch.Tensor, origin: str = "arguments") -> None:
+        """Count ``t``'s storage, made by the op ``origin``, as live until it
+        dies (once a storage)."""
+        if t.device.type != self.device_type:
+            return
+        key = _storage_key(t)
+        if key is None or key in self.live:
+            return
+        st = t.untyped_storage()
+        size = -(-st.nbytes() // ALLOC_GRANULE) * ALLOC_GRANULE
+        self.live[key] = (size, origin)
+        self.held += size
+        if self.held > self.rec.peak_bytes:
+            self.rec.peak_bytes = self.held
+            if self.held > 1.01 * self.shown:
+                self.shown = self.held
+                by: dict[str, int] = {}
+                for b, op in self.live.values():
+                    by[op] = by.get(op, 0) + b
+                self.rec.peak_by_op = by
+        weakref.finalize(st, self._release, key)
+
+    def _release(self, key: int) -> None:
+        self.held -= self.live.pop(key, (0, ""))[0]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils.flop_counter import flop_registry
+
+        kwargs = kwargs or {}
+        if any(not issubclass(t, self.fake) for t in types):
+            return NotImplemented
+        ins = [t for t in _leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+        fakes = [t for t in ins if isinstance(t, self.fake)]
+        if any(t.fake_mode is not self.fake_mode for t in fakes):
+            return func(*args, **kwargs)
+        if fakes:
+            out = func(*args, **kwargs)
+        elif _caller().startswith("torch.distributed"):
+            return func(*args, **kwargs)
+        elif ins and torch.device(kwargs.get("device") or "cpu").type == "cpu":
+            out = func(*args, **kwargs)     # the program's host values
+        else:
+            with self.fake_mode:            # a factory, a copy to the device
+                out = func(*args, **kwargs)
+        name = func.overloadpacket.__name__
+        if func.namespace == "prim" or name in _META_QUERIES:
+            return out
+        outs = [t for t in _leaves(out) if isinstance(t, torch.Tensor)]
+        flops = flop_registry.get(func.overloadpacket)
+        host = (not any(isinstance(t, self.fake) for t in outs)
+                or all(t.ndim == 0 and t.device.type == "cpu" for t in ins + outs))
+        self.rec.ops.append(OpEvent(
+            name, [(tuple(t.shape), t.dtype, _nbytes(t), False) for t in outs],
+            [tuple(t.shape) for t in ins], _is_view(func, ins, outs), func.namespace,
+            0.0 if flops is None else float(flops(*args, **kwargs, out_val=out)),
+            sum(map(_nbytes, ins)) + sum(map(_nbytes, outs)),
+            ", ".join(type_str(t.shape, t.dtype) for t in outs), host))
+        for t in outs:
+            self.hold(t, name)
         return out
 
 
@@ -137,6 +318,40 @@ def record(fn, *args, **kwargs) -> Recording:
         kernels.ROUTE_OBSERVERS.remove(rec.routes.append)
     rec.flops = float(fc.get_total_flops())
     return rec
+
+
+def record_rank(fn, *args, fake_mode, device="cuda", **kwargs) -> Recording:
+    """Run ``fn(*args, **kwargs)`` once on fake tensors of ``fake_mode``
+    (DTensors over them, and host values), recording this rank's program:
+    its ops at their local shapes (DTensors' shards), each with its FLOPs
+    (``torch.utils.flop_counter``'s formulas) and bytes; its router calls;
+    and the peak of the bytes held by the live storages on ``device``
+    (``device``'s type), the arguments' storages counted from the start.
+    ``fake_mode`` must not be entered around the call (``_RankRecorder``)."""
+    from repro_torch import kernels
+
+    rec = Recording()
+    mode = _RankRecorder(rec, fake_mode, device)
+    for t in _leaves((args, kwargs)):
+        if isinstance(t, torch.Tensor):
+            mode.hold(_local(t))
+    rec.arg_bytes = mode.held
+    kernels.ROUTE_OBSERVERS.append(rec.routes.append)
+    try:
+        with route_as_on_card(), mode:
+            rec.result = fn(*args, **kwargs)
+    finally:
+        kernels.ROUTE_OBSERVERS.remove(rec.routes.append)
+    rec.flops = sum(ev.flops for ev in rec.ops)
+    return rec
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its attribute: ``to_local`` would dispatch
+    a view), any other tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t._local_tensor if isinstance(t, DTensor) else t
 
 
 @dataclasses.dataclass

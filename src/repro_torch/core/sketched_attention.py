@@ -162,10 +162,12 @@ def _host_table(slots) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=512)
-def _fold_rounds(table_bytes: bytes, shape: tuple, d_slots: int, device: str):
+def _fold_rounds(table_bytes: bytes, shape: tuple, d_slots: int, device: str, fake_mode=None):
     """The fold's schedule for a (T, m_r) slot table: rounds of (token,
     slot) index pairs in which no slot repeats, round r holding each slot's
-    r-th update in (token, pick) order.  Out-of-range slots are dropped."""
+    r-th update in (token, pick) order.  Out-of-range slots are dropped.
+    ``fake_mode`` keys the schedules made for the fake tensors of one
+    ``FakeTensorMode`` (the dry run's) apart from the device's own."""
     flat = np.frombuffer(table_bytes, dtype=np.int64)
     m_r = shape[-1]
     upd = np.nonzero((flat >= 0) & (flat < d_slots))[0]           # (token, pick) order
@@ -190,9 +192,11 @@ def _fold(cache: SketchCache, k_add: torch.Tensor, v_add: torch.Tensor,
     """Fold the (B, Hkv, T, Dh) contributions into a copy of ``cache`` at
     the slots of the (T, m_r) host table, one rounded add per update in
     (token, pick) order.  The schedule is cached per table and device; its
-    index tensors are only read."""
+    index tensors are only read.  On fake tensors (the dry run's
+    ``FakeTensorMode``) the schedule is cached per fake mode: its index
+    tensors are fakes of that mode."""
     rounds = _fold_rounds(table.tobytes(), table.shape, cache.k_sum.shape[2],
-                          str(cache.k_sum.device))
+                          str(cache.k_sum.device), getattr(cache.k_sum, "fake_mode", None))
     k_sum, v_sum, mass = cache.k_sum.clone(), cache.v_sum.clone(), cache.mass.clone()
     c_mass = _contrib_scale(table.shape[-1])
     for tok, slot in rounds:

@@ -23,7 +23,10 @@ then the O(S·L) F-stage (``landmark_attention``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core.sketch import AccumSketch
 from repro_torch.kernels import routed
@@ -78,6 +81,11 @@ def landmark_attend(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
         return out[0] if single else out
     args = (q.contiguous(), kt.to(q.dtype).contiguous(), M.to(q.dtype).contiguous(),
             None if bias is None else bias.contiguous())
+    if is_fake(q):
+        # a dry run (launch.dryrun): shapes only — nothing launches, and the
+        # autotune cache is not consulted
+        out = _dry_run_op()(*args)
+        return out[0] if single else out
     S, Dh = q.shape[1:]
     fb = (K_.static_rows(S, Dh, q.dtype, q.dtype, q.device),)
     (bq,) = autotune.measured_blocks(
@@ -87,6 +95,36 @@ def landmark_attend(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
         concrete=autotune.is_concrete(*args[:3]), source=K_.source_hash())
     out = K_.landmark_attention(*args, bq=bq)
     return out[0] if single else out
+
+
+@functools.cache
+def _dry_run_op():
+    """The kernel's stand-in on fake tensors (``FakeTensorMode``: the dry
+    run's abstract values), made at its first use: the custom op
+    ``repro_torch::landmark_attention``, whose fake implementation gives the
+    output's shape and dtype (the plain version's), so that one rank's
+    recording charges it the kernel's operand and result bytes, and whose
+    FLOP formula (``torch.utils.flop_counter``) gives the two products the
+    kernel computes, 2·P·S·L·Dh + 2·P·S·L·Dv (the plain version's).  It
+    never computes: on a real tensor it raises (a real CUDA tensor launches
+    the kernel)."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    @torch.library.custom_op("repro_torch::landmark_attention", mutates_args=())
+    def op(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
+           bias: torch.Tensor | None) -> torch.Tensor:
+        raise RuntimeError("landmark_attention's dry-run stand-in takes fake tensors only")
+
+    @op.register_fake
+    def _(q, kt, M, bias):
+        return q.new_empty((*q.shape[:-1], M.shape[-1]))
+
+    @register_flop_formula(torch.ops.repro_torch.landmark_attention)
+    def _(q_shape, kt_shape, M_shape, bias_shape, out_shape=None, **kw) -> int:
+        (P, S, Dh), L, Dv = q_shape, kt_shape[1], M_shape[2]
+        return 2 * P * S * L * (Dh + Dv)
+
+    return torch.ops.repro_torch.landmark_attention
 
 
 @routed

@@ -19,7 +19,14 @@ from repro_torch.core.sketched_attention import (
     update_sketch_cache,
 )
 from repro_torch.models.common import PARAM_DTYPE, apply_rope, dense_init
-from repro_torch.sharding import constrain, from_local, is_dtensor
+from repro_torch.sharding import (
+    constrain,
+    distribute_like,
+    from_local,
+    is_dtensor,
+    local_box,
+    pin_grad,
+)
 
 NEG_INF = -1e30
 
@@ -66,19 +73,18 @@ def _reshape_aligned(x: torch.Tensor, dim: int, n: int, shape) -> torch.Tensor:
     ``n`` equal groups.  A DTensor whose ``dim`` is split over ranks off the
     group boundaries (the model axis does not divide n) is gathered across
     those ranks first, where GSPMD would reshard it too: DTensor refuses to
-    reshape such a split.  The result is pinned to its layout, so that the
-    backward gathers the incoming gradient before undoing the reshape."""
+    reshape such a split.  The result's gradient is pinned to the result's
+    layout (``sharding.pin_grad``), so that the backward gathers an incoming
+    gradient split so before undoing the reshape."""
     from torch.distributed.tensor import Replicate, Shard
 
     if not is_dtensor(x):
         return x.reshape(shape)
     dm = x.device_mesh
     ways = math.prod(k for k, pl in zip(dm.mesh.shape, x.placements) if pl == Shard(dim))
-    if n % ways == 0:
-        return x.reshape(shape)
-    x = x.redistribute(dm, [Replicate() if pl == Shard(dim) else pl for pl in x.placements])
-    y = x.reshape(shape)
-    return y.redistribute(dm, y.placements)
+    if n % ways:
+        x = x.redistribute(dm, [Replicate() if pl == Shard(dim) else pl for pl in x.placements])
+    return pin_grad(x.reshape(shape))
 
 
 def _chunked_causal(q, k, v, cfg: ModelConfig, *, window: int | None, q_chunk: int,
@@ -179,12 +185,39 @@ def attn_prefill(p, h: torch.Tensor, cache: KVCache, cfg: ModelConfig, sin, cos,
     S_cache = cache.k.shape[1]
     kc, vc = k.to(cache.k.dtype), v.to(cache.v.dtype)
     nk, nv = cache.k.clone(), cache.v.clone()
-    if L <= S_cache:
+    if is_dtensor(nk):
+        t0 = max(0, L - S_cache)
+        slots = [t % S_cache for t in range(t0, L)]
+        _write_shards(nk, t0, slots, kc)
+        _write_shards(nv, t0, slots, vc)
+    elif L <= S_cache:
         nk[:, :L], nv[:, :L] = kc, vc
     else:
         ring = torch.arange(L - S_cache, L, device=h.device) % S_cache
         nk[:, ring], nv[:, ring] = kc[:, L - S_cache:], vc[:, L - S_cache:]
     return out, KVCache(nk, nv)
+
+
+def _write_shards(cache_t: torch.Tensor, t0: int, slots: list, x: torch.Tensor) -> None:
+    """``cache_t[:, slots[i]] = x[:, t0 + i]`` in place on a mesh: cache_t a
+    (B, S, Hkv, Dh) DTensor, its positions split over ranks; x (B, L, Hkv,
+    Dh) in its dtype; ``slots`` host ints.  Each rank writes the slots that
+    its own shard holds, from x gathered whole.  DTensor's indexing of a
+    split dimension writes into a gathered copy, and the shards would keep
+    their old values."""
+    from torch.distributed.tensor import Replicate
+
+    dm = cache_t.device_mesh
+    if is_dtensor(x):
+        x = x.redistribute(dm, [Replicate()] * dm.ndim).to_local()
+    (b0, b1), (s0, s1), (h0, h1), (d0, d1) = local_box(cache_t.shape, dm, cache_t.placements)
+    mine = [i for i, s in enumerate(slots) if s0 <= s < s1]
+    if not mine:
+        return
+    local = cache_t.to_local()
+    src = torch.tensor([t0 + i for i in mine], device=local.device)
+    dst = torch.tensor([slots[i] - s0 for i in mine], device=local.device)
+    local[:, dst] = x[b0:b1, :, h0:h1, d0:d1].index_select(1, src)
 
 
 def attn_decode(p, h_t: torch.Tensor, cache: KVCache, pos: int, cfg: ModelConfig,
@@ -203,15 +236,19 @@ def attn_decode(p, h_t: torch.Tensor, cache: KVCache, pos: int, cfg: ModelConfig
     if write_pos is None:
         write_pos = pos
     q, k, v = _qkv(p, h_t, cfg, sin_t, cos_t)                       # (B,1,·,Dh)
-    cache.k[:, write_pos] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, write_pos] = v[:, 0].to(cache.v.dtype)
+    if is_dtensor(cache.k):
+        _write_shards(cache.k, 0, [write_pos], k.to(cache.k.dtype))
+        _write_shards(cache.v, 0, [write_pos], v.to(cache.v.dtype))
+    else:
+        cache.k[:, write_pos] = k[:, 0].to(cache.k.dtype)
+        cache.v[:, write_pos] = v[:, 0].to(cache.v.dtype)
     n = min(pos + 1, cache.k.shape[1])
     scale = softmax_scale(Dh)
-    qg = q.reshape(B, Hkv, G, Dh).float()
+    qg = _reshape_aligned(q, 2, Hkv, (B, Hkv, G, Dh)).float()
     logits = torch.einsum("bhgd,bshd->bhgs", qg, cache.k[:, :n].float()) * scale
     o = torch.einsum("bhgs,bshd->bhgd", torch.softmax(logits, dim=-1),
                      cache.v[:, :n].float())
-    out = o.reshape(B, 1, H * Dh).to(h_t.dtype) @ p["wo"]
+    out = _reshape_aligned(o, 1, Hkv, (B, 1, H * Dh)).to(h_t.dtype) @ p["wo"]
     return out, cache
 
 
@@ -236,8 +273,12 @@ def attn_prefill_sketched(p, h: torch.Tensor, cache: SketchCache, cfg: ModelConf
     B, L, _ = h.shape
     H, Dh = cfg.n_heads, cfg.head_dim
     q, k, v = _qkv(p, h, cfg, sin, cos)
-    o, cache = sketch_prefill_attend(q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2), cache, slot_table, chunk=chunk)
+
+    def attend(q, k, v, cache):
+        return sketch_prefill_attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                     cache, slot_table, chunk=chunk)
+
+    o, cache = _on_sketch_cache(attend, q, k, v, cache)
     out = o.transpose(1, 2).reshape(B, L, H * Dh).to(h.dtype) @ p["wo"]
     return out, cache
 
@@ -249,7 +290,38 @@ def attn_decode_sketched(p, h_t: torch.Tensor, cache: SketchCache, cfg: ModelCon
     B = h_t.shape[0]
     H, Dh = cfg.n_heads, cfg.head_dim
     q, k, v = _qkv(p, h_t, cfg, sin_t, cos_t)
-    cache = update_sketch_cache(cache, k[:, 0], v[:, 0], slots)
-    o = sketch_decode_attend(q[:, 0].reshape(B, H, Dh), cache)
+
+    def attend(q, k, v, cache):
+        cache = update_sketch_cache(cache, k[:, 0], v[:, 0], slots)
+        return sketch_decode_attend(q[:, 0].reshape(B, H, Dh), cache), cache
+
+    o, cache = _on_sketch_cache(attend, q, k, v, cache)
     out = o.reshape(B, 1, H * Dh).to(h_t.dtype) @ p["wo"]
     return out, cache
+
+
+def _on_sketch_cache(attend, q, k, v, cache: SketchCache) -> tuple[torch.Tensor, SketchCache]:
+    """``attend(q, k, v, cache) → (o, new cache)``, the sketched cache's fold
+    and attention; on a mesh (DTensors) q, k, v and the compressed cache are
+    gathered whole on every rank and the step computed on them as on one
+    device (the kernel on a card), the attention's output a replicated
+    DTensor and each rank keeping its own shard of the new cache, placed as
+    the old one.  The cache is O(d_slots) a layer, and its slots and heads
+    may be split over ranks off a KV group's boundary, where DTensor's index
+    and reshape rules refuse or misplace the shards; the gather moves what
+    the kernel reads.  Every rank computes the whole step: its products
+    are the reference's per-partition share times the ranks that split the
+    cache."""
+    if not is_dtensor(cache.k_sum):
+        return attend(q, k, v, cache)
+    from torch.distributed.tensor import Replicate
+
+    dm = cache.k_sum.device_mesh
+    rep = [Replicate()] * dm.ndim
+
+    def whole(x):
+        return x.redistribute(dm, rep).to_local() if is_dtensor(x) else x
+
+    o, new = attend(whole(q), whole(k), whole(v), SketchCache(*map(whole, cache)))
+    return (from_local(o, dm, rep, o.shape),
+            SketchCache(*(distribute_like(n, like) for n, like in zip(new, cache))))

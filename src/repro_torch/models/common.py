@@ -2,7 +2,10 @@
 (ported from ``repro.models.common``)."""
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.checkpoint import checkpoint
 
 PARAM_DTYPE = torch.bfloat16
@@ -10,8 +13,12 @@ PARAM_DTYPE = torch.bfloat16
 
 def _trunc_normal(generator: torch.Generator, shape, std) -> torch.Tensor:
     """A float32 draw from N(0, 1) truncated to [−3, 3], times ``std``, on
-    the generator's device."""
+    the generator's device.  A fake tensor (``FakeTensorMode``: the dry
+    run's abstract parameters) has no values, so nothing is drawn into it:
+    PyTorch's rejection sampler would read its acceptance mask back."""
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    if isinstance(w, FakeTensor):
+        return w
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
     return w.mul_(std)
 
@@ -20,8 +27,18 @@ def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
                dtype=PARAM_DTYPE) -> torch.Tensor:
     """Truncated-normal fan-in init, drawn in float32 on the generator's
     device and cast to ``dtype``."""
-    std = 1.0 / torch.sqrt(torch.tensor(shape[in_axis], dtype=torch.float32)).item()
-    return _trunc_normal(generator, shape, std).to(dtype)
+    return _trunc_normal(generator, shape, _fan_in_std(int(shape[in_axis]))).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _fan_in_std(n: int) -> float:
+    """1/√n, the root taken by PyTorch's float32 CPU kernel (whose rounding
+    is not always numpy's: 1 ulp apart at n = 267 on an AVX-512 host), on
+    a plain host tensor with every dispatch mode and tensor subclass out of
+    the way, so that the init also runs under ``FakeTensorMode``
+    (``launch.specs.params_abstract``) and reads no fake value back."""
+    with torch._C._DisableTorchDispatch():
+        return 1.0 / torch.sqrt(torch.tensor(n, dtype=torch.float32)).item()
 
 
 def embed_init(generator: torch.Generator, shape, dtype=PARAM_DTYPE) -> torch.Tensor:

@@ -43,7 +43,7 @@ from repro_torch.models.common import (
     rmsnorm,
     rope_table,
 )
-from repro_torch.sharding import constrain, from_local, is_dtensor
+from repro_torch.sharding import constrain, from_local, gather_fsdp, is_dtensor
 
 Params = dict
 PORTED_KINDS = ("attn", "attn_local", "attn_shared", "mamba2", "mlstm", "slstm")
@@ -176,6 +176,7 @@ def _ffn(kind: str, p: Params, h: torch.Tensor, cfg: ModelConfig
     the reference."""
     if "ffn" not in p:
         return h, None
+    h = _pin(h, cfg)
     x = rmsnorm(h, p["ffn"]["norm"], cfg.norm_eps)
     if cfg.ffn == "moe" and kind != "attn_shared":
         y, metrics = moe_mod.moe_forward(p["ffn"], x, cfg.moe)
@@ -237,12 +238,33 @@ def _remat_call(policy: str, fn, *args):
     raise ValueError(f"remat must be 'none', 'dots' or 'full', got {policy!r}")
 
 
+def _pin(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The residual stream pinned to the batch on the data axes, whole on
+    the model axis (the identity off a mesh).  Under GSPMD every op's
+    result takes this layout from its neighbours; DTensor keeps a
+    tensor-parallel product's partial sums (``Partial``) through the
+    residual add and the norm, and then gathers the next block's weights
+    whole instead of multiplying by their shards, so each block pins its
+    input."""
+    return constrain(h, "dp", None, None, policy=cfg.sharding_policy)
+
+
+def _block_params(p: Params, cfg: ModelConfig) -> Params:
+    """A block's parameters as its products take them: under "dp_only" (no
+    tensor parallelism) each weight gathered whole from its FSDP shards
+    first (``sharding.gather_fsdp``), so that the activations keep the
+    batch split alone, as GSPMD gathers them; otherwise as they are."""
+    if cfg.sharding_policy != "dp_only":
+        return p
+    return tree_map(lambda w: gather_fsdp(w, cfg.sharding_policy), p)
+
+
 def _superblock(h: torch.Tensor, aux: torch.Tensor, sb: Params, shared: Params,
                 cfg: ModelConfig, sin, cos, q_chunk: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    h = constrain(h, "dp", None, None, policy=cfg.sharding_policy)  # pin the carry
     for j, kind in enumerate(cfg.pattern):
-        p = shared if kind == "attn_shared" else sb[f"pos{j}"]
+        h = _pin(h, cfg)  # the carry, then each block's input
+        p = _block_params(shared if kind == "attn_shared" else sb[f"pos{j}"], cfg)
         if kind in _MIXERS:
             x = rmsnorm(h, p["mixer"]["norm"], cfg.norm_eps)
             h = h + _MIXERS[kind][1](p["mixer"], x, cfg)
@@ -274,13 +296,16 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     for sb in _unstack(params["blocks"], cfg.n_superblocks):
         h, aux = _remat_call(remat, _superblock, h, aux, sb, params["shared"], cfg, sin,
                              cos, q_chunk)
-    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    h = rmsnorm(_pin(h, cfg), params["final_norm"], cfg.norm_eps)
     return h, aux
 
 
-def output_embedding(params: Params) -> torch.Tensor:
-    """The output head (the input embedding when tied)."""
-    return params.get("lm_head", params["embed"])
+def output_embedding(params: Params, cfg: ModelConfig | None = None) -> torch.Tensor:
+    """The output head (the input embedding when tied); on a mesh with
+    ``cfg``, its FSDP shards gathered (``sharding.gather_fsdp``), the
+    vocabulary kept on the model axis."""
+    emb = params.get("lm_head", params["embed"])
+    return emb if cfg is None else gather_fsdp(emb, cfg.sharding_policy)
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig, *,
@@ -300,7 +325,7 @@ def loss_fn(params: Params, tokens: torch.Tensor, labels: torch.Tensor, cfg: Mod
                           mask], dim=1)
         labels = torch.cat([torch.zeros((B, Sc), dtype=labels.dtype,
                                         device=labels.device), labels], dim=1)
-    xent, count = chunked_xent(h, output_embedding(params), labels, mask)
+    xent, count = chunked_xent(h, output_embedding(params, cfg), labels, mask)
     aux_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
     return xent + aux_w * aux, {"xent": xent, "aux": aux, "tokens": count}
 
@@ -323,7 +348,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     """Prefill pass (``cond`` embeddings first, as in ``forward``) →
     last-position logits (B, V) float32."""
     h, _ = forward(params, tokens, cfg, cond=cond, q_chunk=q_chunk, remat="none")
-    return _head_logits(h[:, -1], output_embedding(params))
+    return _head_logits(h[:, -1], output_embedding(params, cfg))
 
 
 # --------------------------------------------------------------------------- #
@@ -364,6 +389,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def _block_decode(kind, p, h, state, cfg, sin_t, cos_t, pos: int, slots):
+    h = _pin(h, cfg)
     if kind in _MIXERS:
         x = rmsnorm(h, p["mixer"]["norm"], cfg.norm_eps)
         y, state = _MIXERS[kind][2](p["mixer"], x, state, cfg)
@@ -381,6 +407,7 @@ def _block_decode(kind, p, h, state, cfg, sin_t, cos_t, pos: int, slots):
 
 
 def _block_prefill(kind, p, h, state, cfg, sin, cos, slot_table, q_chunk):
+    h = _pin(h, cfg)
     if kind in _MIXERS:
         # the recurrent mixers have a per-token transition only: their token
         # scan (the state the sequential decode reaches, what does not depend
@@ -409,7 +436,7 @@ def _run_blocks(params, cache: DecodeCache, h, cfg: ModelConfig, step, *,
             h = constrain(h, "dp", None, None, policy=cfg.sharding_policy)
         for j, kind in enumerate(cfg.pattern):
             key = f"pos{j}"
-            p = params["shared"] if kind == "attn_shared" else sb[key]
+            p = _block_params(params["shared"] if kind == "attn_shared" else sb[key], cfg)
             h, blocks[key][i] = step(kind, p, h, blocks[key][i])
     return h, DecodeCache(blocks)
 
@@ -430,7 +457,7 @@ def prefill_with_cache(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     h, cache = _run_blocks(params, cache, h, cfg, lambda kind, p, h, st: _block_prefill(
         kind, p, h, st, cfg, sin, cos, slot_table, q_chunk), pin_carry=True)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return _head_logits(h[:, -1], output_embedding(params)), cache
+    return _head_logits(h[:, -1], output_embedding(params, cfg)), cache
 
 
 def decode_step(params: Params, cache: DecodeCache, token_t: torch.Tensor, pos: int,
@@ -448,5 +475,5 @@ def decode_step(params: Params, cache: DecodeCache, token_t: torch.Tensor, pos: 
     h, cache = _run_blocks(params, cache, h, cfg, lambda kind, p, h, st: _block_decode(
         kind, p, h, st, cfg, sin_t, cos_t, int(pos), slots))
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return _head_logits(h[:, 0], output_embedding(params)), cache
+    return _head_logits(h[:, 0], output_embedding(params, cfg)), cache
 

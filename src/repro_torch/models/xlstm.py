@@ -27,6 +27,7 @@ import torch.nn.functional as Fn
 from repro_torch._util import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import PARAM_DTYPE, dense_init
+from repro_torch.sharding import from_local, is_dtensor
 
 _M0 = -1e30   # the stabilizer's initial value
 
@@ -354,8 +355,33 @@ def slstm_scan(R, f_bias, xz, xi, xf, xog) -> torch.Tensor:
     hs (L, B, H, Dh), differentiated by ``SLSTMScan``."""
     H = R[0].shape[0]
     X = _pre_stack(xz, xi, xf, xog, f_bias, H)
-    hs = SLSTMScan.apply(_r_stack(*R, X.dtype), X)
+    Rs = _r_stack(*R, X.dtype)
+    if is_dtensor(X):
+        hs = _scan_on_shards(Rs, X)
+    else:
+        hs = SLSTMScan.apply(Rs, X)
     return hs.permute(0, 2, 1, 3)
+
+
+def _scan_on_shards(R, X):
+    """``SLSTMScan`` on a mesh: each rank's own batch rows (every row's
+    recurrence is its own) through the scan on local tensors, R gathered
+    whole; the hidden states placed as X, and R's gradient a partial sum
+    over the ranks that split the batch (DTensor's reshapes refuse the
+    backward's merge of a split batch with the time axis)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    dm = X.device_mesh
+    rep = [Replicate()] * dm.ndim
+    batch = [pl if pl == Shard(2) else Replicate() for pl in X.placements]
+    if list(X.placements) != batch:
+        X = X.redistribute(dm, batch)       # (L, H, B, 4·Dh): the batch split alone
+    grad = [Replicate() if pl == Replicate() else Partial() for pl in X.placements]
+    if is_dtensor(R):
+        R = R.redistribute(dm, rep).to_local(grad_placements=grad)
+    L, H, B, D4 = X.shape
+    hs = SLSTMScan.apply(R, X.to_local())
+    return from_local(hs, dm, X.placements, (L, H, B, D4 // 4))
 
 
 def slstm_scan_plain(R, f_bias, xz, xi, xf, xog) -> torch.Tensor:

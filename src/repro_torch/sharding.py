@@ -32,6 +32,7 @@ must take the same paths as the forward did.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -111,8 +112,33 @@ def make_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...], *,
     device = torch.device(device)
     need = math.prod(shape)
     ranks = torch.arange(need).reshape(shape)
+    _missing_rules()
     return Mesh(DeviceMesh(device.type, ranks, mesh_dim_names=tuple(axis_names)),
                 axis_names, device)
+
+
+@functools.cache
+def _missing_rules() -> None:
+    """Sharding rules DTensor lacks (on some PyTorch versions) for ops the
+    models run on a mesh: ``log_sigmoid_backward`` (the backward of the
+    mLSTM's forget gate), its operands and result placed alike, whole or
+    split along any one dimension; and ``mm.dtype`` (the output head's
+    product with a float32 result on a card), the rules of ``mm``: rows,
+    columns or the contraction split (the last a partial sum)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.log_sigmoid_backward.default)
+    def _(grad, x, buffer):
+        alike = [([Replicate()], [Replicate()] * 3)]
+        return alike + [([Shard(d)], [Shard(d)] * 3) for d in range(x.ndim)]
+
+    @register_sharding(torch.ops.aten.mm.dtype)
+    def _(a, b, out_dtype):
+        return [([Replicate()], [Replicate(), Replicate(), None]),
+                ([Shard(0)], [Shard(0), Replicate(), None]),
+                ([Shard(1)], [Replicate(), Shard(1), None]),
+                ([Partial()], [Shard(1), Shard(0), None])]
 
 
 def current_mesh() -> Mesh | None:
@@ -418,11 +444,29 @@ def _entries_spec(m: Mesh, shape, entries, policy: str) -> tuple:
     return tuple(spec)
 
 
+def gather_fsdp(w: torch.Tensor, policy: str = "default") -> torch.Tensor:
+    """The weight ``w`` with its shards over the data axes gathered and its
+    model-axis (tensor-parallel) shards kept: the layout GSPMD gathers an
+    FSDP weight to before a product (its backward reduce-scatters the
+    gradient).  DTensor left to itself may gather the other operand's batch
+    instead.  The identity outside a mesh context and on a tensor that is
+    not a DTensor; under "dp_only" every axis is a data axis."""
+    from torch.distributed.tensor import Replicate
+
+    m = current_mesh()
+    if m is None or not is_dtensor(w):
+        return w
+    data = set(data_axes(m, policy))
+    pls = [Replicate() if a in data else pl for a, pl in zip(m.axis_names, w.placements)]
+    return w if pls == list(w.placements) else w.redistribute(w.device_mesh, pls)
+
+
 def constrain(x: torch.Tensor, *entries, policy: str = "default") -> torch.Tensor:
     """The sharding constraint of the reference: (a) the identity outside a
     mesh context, and on a tensor that is not a DTensor; (b) inside one, a
     ``redistribute`` of the DTensor ``x`` to the placements its entries
-    give, axes absent from the mesh and non-divisible dims dropped.  Entries
+    give, axes absent from the mesh and non-divisible dims dropped, its
+    gradient redistributed to the same placements (``_Constrain``).  Entries
     use the logical names "dp" (pod+data; +model under dp_only), "tp"
     (model), "sp" (the sequence on model) and "tp!" (model even where the
     dim does not divide), or None.
@@ -434,6 +478,43 @@ def constrain(x: torch.Tensor, *entries, policy: str = "default") -> torch.Tenso
     if m is None or not is_dtensor(x):
         return x
     want = placements(m, _entries_spec(m, x.shape, entries, policy))
-    if list(x.placements) == want:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Constrain.apply(x, m.device_mesh, want, want)
+    return x if list(x.placements) == want else x.redistribute(m.device_mesh, want)
+
+
+def pin_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient redistributed in the backward to ``x``'s
+    own placements, a partial sum's as replicated (the identity off a mesh
+    and where no gradient flows): a reshape's backward then gets the layout
+    its forward had, where a constraint after it (``constrain``'s gradient)
+    may split a dimension unevenly that DTensor cannot reshape."""
+    from torch.distributed.tensor import Replicate
+
+    if not (is_dtensor(x) and torch.is_grad_enabled() and x.requires_grad):
         return x
-    return x.redistribute(m.device_mesh, want)
+    grad = [Replicate() if pl.is_partial() else pl for pl in x.placements]
+    return _Constrain.apply(x, x.device_mesh, list(x.placements), grad)
+
+
+class _Constrain(torch.autograd.Function):
+    """``redistribute`` to ``want`` whose gradient is redistributed to
+    ``grad``: for a constraint both are its placements, as the transpose of
+    GSPMD's sharding constraint is the same constraint on the cotangent.
+    DTensor's own ``redistribute`` passes a gradient back in whatever
+    placement it arrives; a ``Partial`` sum then reaches the products before
+    it, and DTensor gathers their weights whole rather than reduce the sum
+    (a block's backward computed whole on every model rank)."""
+
+    @staticmethod
+    def forward(ctx, x, device_mesh, want, grad):
+        ctx.device_mesh, ctx.grad = device_mesh, grad
+        if list(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if list(g.placements) != ctx.grad:
+            g = g.redistribute(ctx.device_mesh, ctx.grad)
+        return g, None, None, None

@@ -157,3 +157,54 @@ def test_port_defines_every_name_the_reference_sharding_defines(module, name):
 
     port = importlib.import_module(f"repro_torch.{module}")
     assert callable(getattr(port, name, None)), f"repro_torch.{module} lacks {name}"
+
+
+# the dry run's modules: each reference name the port does not define, with
+# its reason; the private names the port keeps
+DRY_RUN_MODULES = ("analysis/hlo.py", "launch/analysis.py", "launch/specs.py",
+                   "launch/dryrun.py")
+DEF_EXCEPTIONS = {
+    # TPU v5e's per-link ICI rate: the port's collective term divides by the
+    # H100's NVLink rate (NVLINK_BW)
+    ("launch/analysis.py", "ICI_BW"),
+    # lowered-text donation attributes: the port checks donation on the
+    # buffers themselves (repro_torch.analysis.trace.verify_donation)
+    ("analysis/hlo.py", "DONATION_ATTRS"),
+    ("analysis/hlo.py", "donation_attrs_present"),
+}
+PRIVATE_KEPT = {("launch/dryrun.py", "_active_params"), ("launch/dryrun.py", "_moe_active")}
+
+
+def _top_level_names(path: Path) -> list[str]:
+    """The functions, classes and module-level assignments of a module."""
+    out = []
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+            out.append(n.name)
+        elif isinstance(n, ast.Assign):
+            out += [t.id for t in n.targets if isinstance(t, ast.Name)]
+        elif isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name):
+            out.append(n.target.id)
+    return out
+
+
+@pytest.mark.parametrize("module,name", [
+    (m, n) for m in DRY_RUN_MODULES for n in _top_level_names(ROOT / "src" / "repro" / m)
+    if (not n.startswith("_") or (m, n) in PRIVATE_KEPT) and (m, n) not in DEF_EXCEPTIONS],
+    ids=lambda v: v)
+def test_dry_run_modules_define_every_name_the_reference_defines(module, name):
+    import importlib
+
+    port = importlib.import_module("repro_torch." + module[:-3].replace("/", "."))
+    assert hasattr(port, name), f"repro_torch/{module} lacks {name}"
+
+
+@pytest.mark.parametrize("module", DRY_RUN_MODULES)
+def test_dry_run_modules_import_no_jax_or_reference(module):
+    path = PORT / module
+    assert path in PORT_FILES
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib") and (not top.startswith("repro")
+                                                 or top == "repro_torch"), mod
+    assert all(n in _top_level_names(ROOT / "src" / "repro" / m) for m, n in DEF_EXCEPTIONS)

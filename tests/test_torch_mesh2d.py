@@ -22,8 +22,22 @@ They write whole (gathered) results and digests; this process compares.
   loss at 1e-6 relative; each gradient leaf at 1e-5 of its largest entry
   (float32 sums in another order; the expert weights' gradients, rounded to
   bfloat16 where the a2a path reduces them, at one bfloat16 step, 2⁻⁸).
-- Every replicated output (loss, gathered gradients, the loop's state) is
-  bitwise equal across the four ranks.
+- Serving on the mesh (reduced stablelm-3b, its 3-KV-head variant and
+  moonshot-v1-16b-a3b, float32, exact and sketched caches): a
+  ``prefill_with_cache`` of the batch and one ``decode_step``, the cache
+  placed by ``cache_shardings`` (the batch on data, the positions or the
+  slots on model), against one process: both steps' logits at 1e-5 of
+  their largest magnitude, each cache leaf at 1e-6 of its largest entry
+  (measured: logits within 7e-7, caches bit for bit); the cache leaves keep
+  their placements.
+- A wide, shallow stablelm-3b (d_model 512) on a batch of 2 × 4 tokens:
+  DTensor moves the activations rather than gather the FSDP weights, so
+  the products before the aligned reshapes are partial sums over "data";
+  loss at 1e-6 relative and gradients at 1e-5 of their largest against one
+  process.
+- Every replicated output (loss, gathered gradients, the loop's state, the
+  serving logits and gathered caches) is bitwise equal across the four
+  ranks.
 - A sharded training loop (reduced stablelm-3b, bfloat16 parameters,
   compression on): 4 steps in one run against 2 steps, a checkpoint of each
   rank's shards and 2 resumed steps — the last two losses and the final
@@ -65,12 +79,23 @@ MOE = {"nodrop": (MoECfg(n_experts=8, top_k=2, d_ff_expert=16, capacity_factor=6
        "drops": (MoECfg(n_experts=8, top_k=2, d_ff_expert=16, capacity_factor=1.0),
                  (4, 16, 12))}
 # the reduced models; "stablelm-3b-3kv" has 3 KV heads, which the model axis
-# of 2 splits unevenly (the reference's "tp!")
+# of 2 splits unevenly (the reference's "tp!"); xlstm-125m is "dp_only" (its
+# weights gathered whole a block, the sLSTM scan on each rank's batch rows)
 MODELS = {"stablelm-3b": reduced(ARCHS["stablelm-3b"]),
           "moonshot-v1-16b-a3b": reduced(ARCHS["moonshot-v1-16b-a3b"]),
-          "stablelm-3b-3kv": reduced(ARCHS["stablelm-3b"]).scaled(n_heads=6, n_kv_heads=3)}
+          "stablelm-3b-3kv": reduced(ARCHS["stablelm-3b"]).scaled(n_heads=6, n_kv_heads=3),
+          "xlstm-125m": reduced(ARCHS["xlstm-125m"])}
 ARCH_NAMES = tuple(MODELS)
 BATCH, SEQ = 4, 16
+# serving: the prompt is SEQ tokens, the exact cache holds SERVE_LEN positions
+# (split over the model axis), and one token is decoded at position SEQ
+SERVE_ARCHS = ("stablelm-3b", "stablelm-3b-3kv", "moonshot-v1-16b-a3b")
+SERVE_CACHES = ("exact", "sketched")
+SERVE_LEN = 32
+# wide weights and a tiny batch, so that DTensor moves activations, not weights
+WIDE = reduced(ARCHS["stablelm-3b"]).scaled(d_model=512, n_heads=8, n_kv_heads=8,
+                                            head_dim=64, d_ff=1024)
+WIDE_BATCH_SEQ = (2, 4)
 EXPERT_NAMES = ("wi_gate", "wi_up", "wo")
 
 
@@ -117,11 +142,11 @@ def _grad_names(p: dict, prefix: str = "") -> list[str]:
     return out
 
 
-def _batch(cfg):
+def _batch(cfg, batch: int = BATCH, seq: int = SEQ):
     from repro_torch.data.pipeline import DataConfig, global_batch
 
-    return global_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
-                                   global_batch=BATCH), 0, device="cpu")
+    return global_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=batch), 0, device="cpu")
 
 
 def _model_loss_and_grads(params, tokens, labels, cfg):
@@ -154,6 +179,28 @@ def _plain_a2a(dp_size: int, M: int):
         yield
     finally:
         MO.moe_forward = forward
+
+
+def _serve(params, cfg, tokens, nxt, cache_kind: str, place=lambda c: c) -> dict:
+    """A ``prefill_with_cache`` of ``tokens`` (B, SEQ) into a float32 cache
+    (``place``d) and one ``decode_step`` of ``nxt`` (B,) at position SEQ:
+    {"prefill": logits, "decode": logits, "cache<i>": each cache leaf}."""
+    from repro_torch._util import tree_leaves
+    from repro_torch.core.sketched_attention import decode_slot_table, decode_slots
+    from repro_torch.models.model import decode_step, init_cache, prefill_with_cache
+
+    sketch = cache_kind == "sketched"
+    sa = cfg.sketch_attn
+    cache = place(init_cache(cfg, BATCH, SERVE_LEN, dtype=torch.float32, use_sketch=sketch,
+                             device="cpu"))
+    table = decode_slot_table(0, SEQ, sa.d_slots, sa.m_r) if sketch else None
+    slots = decode_slots(0, SEQ, sa.d_slots, sa.m_r) if sketch else None
+    with torch.no_grad():
+        first, cache = prefill_with_cache(params, tokens, cfg, cache, slot_table=table,
+                                          q_chunk=8)
+        second, cache = decode_step(params, cache, nxt, SEQ, cfg, slots=slots)
+    return {"prefill": first, "decode": second,
+            **{f"cache{i}": x for i, x in enumerate(tree_leaves(cache))}}
 
 
 def _digest(t) -> str:
@@ -233,6 +280,43 @@ def _worker(rank: str, store: str, base: str) -> int:
                 whole = sh.full(g)
                 out[f"{arch}_g{i}"] = whole.numpy()
                 report["digests"][f"{arch}_g{i}"] = _digest(whole)
+        # the wide model on the tiny batch
+        params = init_params(0, WIDE, device="cpu", dtype=torch.float32)
+        params = sh.shard_tree(params, mesh, sh.params_shardings(mesh, params))
+        tok, lab = (sh.distribute(t, mesh, sh.batch_spec(mesh, WIDE_BATCH_SEQ[0]))
+                    for t in _batch(WIDE, *WIDE_BATCH_SEQ))
+        with mesh:
+            loss, grads = _model_loss_and_grads(params, tok, lab, WIDE)
+        for k, v in {"loss": loss, **{f"g{i}": g for i, g in enumerate(grads)}}.items():
+            whole = sh.full(v).detach()
+            out[f"wide_{k}"] = whole.numpy()
+            report["digests"][f"wide_{k}"] = _digest(whole)
+        # serving: prefill with a cache placed by cache_shardings, one decode step
+        for arch in SERVE_ARCHS:
+            cfg = MODELS[arch]
+            params = init_params(0, cfg, device="cpu", dtype=torch.float32)
+            params = sh.shard_tree(params, mesh, sh.params_shardings(mesh, params))
+            tok, lab = _batch(cfg)
+            tok, nxt = (sh.distribute(t, mesh, sh.batch_spec(mesh, BATCH))
+                        for t in (tok, lab[:, -1].contiguous()))
+
+            def place(cache):
+                def one(x):
+                    stacked = torch.empty((cfg.n_superblocks, *x.shape), device="meta")
+                    return sh.distribute(x, mesh, tuple(sh.cache_shardings(
+                        mesh, stacked, BATCH, cfg.sharding_policy)[1:]))
+
+                return tree_map(one, cache)
+
+            for kind in SERVE_CACHES:
+                with mesh:
+                    vals = _serve(params, cfg, tok, nxt, kind, place)
+                cache_pl = [str(v.placements) for k, v in vals.items() if k.startswith("cache")]
+                report[f"{arch}_{kind}_placements"] = cache_pl
+                for k, v in vals.items():
+                    whole = sh.full(v).detach()
+                    out[f"{arch}_{kind}_{k}"] = whole.numpy()
+                    report["digests"][f"{arch}_{kind}_{k}"] = _digest(whole)
         # a sharded loop: 4 steps against 2, a checkpoint and 2 resumed
         cfg = reduced(ARCHS["stablelm-3b"])
         tc = ST.TrainConfig(optimizer=AdamWConfig(lr_peak=1e-3, warmup_steps=2,
@@ -463,6 +547,39 @@ def test_model_on_the_mesh_equals_one_process(ranks, arch):
         tol = 2.0 ** -8 if cfg.moe is not None and name.split("/")[-1] in EXPERT_NAMES \
             and "/ffn/" in f"/{name}/" else 1e-5
         assert _max_err(got[f"{arch}_g{i}"], want) <= tol * scale, (name,)
+
+
+def test_partial_products_before_a_reshape_train_on_the_mesh(ranks):
+    _, _, got, _ = ranks
+    params = init_params(0, WIDE, device="cpu", dtype=torch.float32)
+    loss, grads = _model_loss_and_grads(params, *_batch(WIDE, *WIDE_BATCH_SEQ), WIDE)
+    loss = float(loss.detach())
+    assert abs(float(got["wide_loss"]) - loss) <= 1e-6 * abs(loss)
+    for i, (name, g) in enumerate(zip(_leaf_names(params), grads)):
+        scale = max(float(np.abs(g.numpy()).max()), 1e-30)
+        assert _max_err(got[f"wide_g{i}"], g.numpy()) <= 1e-5 * scale, (name,)
+
+
+@pytest.mark.parametrize("kind", SERVE_CACHES)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serving_on_the_mesh_equals_one_process(ranks, arch, kind):
+    _, reports, got, _ = ranks
+    cfg = MODELS[arch]
+    params = init_params(0, cfg, device="cpu", dtype=torch.float32)
+    tok, lab = _batch(cfg)
+    with _plain_a2a(*SHAPE):
+        want = _serve(params, cfg, tok, lab[:, -1].contiguous(), kind)
+    assert len([k for k in got if k.startswith(f"{arch}_{kind}_")]) == len(want)
+    for k, w in want.items():
+        w = w.numpy()
+        tol = 1e-6 if k.startswith("cache") else 1e-5
+        scale = max(float(np.abs(w).max()), 1e-30)
+        assert _max_err(got[f"{arch}_{kind}_{k}"], w) <= tol * scale, (k,)
+    # every rank keeps its own shard of the cache, placed as cache_shardings
+    # placed it: the batch on data, the positions (exact) or slots on model
+    split = "(Shard(dim=0), Shard(dim=1))" if kind == "exact" else "(Shard(dim=0), Shard(dim=2))"
+    for r in reports:
+        assert r[f"{arch}_{kind}_placements"] == [split] * (2 if kind == "exact" else 3)
 
 
 def _leaf_names(tree: dict, prefix: str = "") -> list[str]:
