@@ -177,6 +177,27 @@
         a prefill, an exact decode and a sketched long-context decode (cut
         to 2 superblocks), one subprocess a cell, under one time limit: each
         record printed, any failed cell failing the path.
+   Then path (u), the reference's memory plan for training and the example
+   twins (``memory_plan_path``), once, its launch counts from 0 (the twins
+   count theirs in their own processes):
+   (u1) ``chunked_xent`` at gemma3-12b's head (vocabulary 262,144, d_model
+        3840) on 16 × 4096 float32 hidden states: the one-buffer backward's
+        rise of ``max_memory_allocated`` against ``torch.utils.checkpoint``
+        of the chunk's plain ops (the route it replaced), the reckoned rises
+        printed first, the loss bit for bit and the gradients at 1e-4;
+   (u2) gemma3-12b's global attention block at full width (2 × 4096
+        tokens, 16 heads of 256), forward and backward: the recomputing
+        chunk against the core that keeps every chunk's scores, rises and
+        gradients likewise;
+   (u3) (run first, alone on the card) the decode sweep's log-sum-exp
+        output against the plain version's at (j)'s and (p)'s shapes and a
+        one-split shape (head dim 256), in float32 and bfloat16, the output
+        bit for bit the launch's without it, timed beside it;
+   (u4) the five example twins (examples/*_torch.py) at their defaults
+        with ``--check``, one subprocess each, started together after (u3)
+        and beside (u1)–(u2): each exits 0 with its claims holding and prints its wall
+        time and the kernels it launched (train_lm none; long_context_serve
+        landmark_attention).
 4. Prints one ``{"kernels": [...]}`` line (with each kernel's device ms
    summed on the paths of pass 3, (m), (n1) and (p1)), the card line, and as the
    last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -294,7 +315,7 @@ XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_TRAIN_STEPS = 4, 512, 3
 # all-gather on the mesh's subgroups) killed all four ranks with SIGSEGV
 # (PERF.md §7), so the 2-D mesh on the card waits for several cards; on the
 # CPU the batch and length are cut to S_CPU_BATCH_SEQ
-S_MOE_ARCH, S_DENSE_ARCH, S_SB, S_BATCH, S_SEQ = "moonshot-v1-16b-a3b", "stablelm-3b", 2, 4, 1024
+S_MOE_ARCH, S_DENSE_ARCH, S_SB, S_BATCH, S_SEQ = "moonshot-v1-16b-a3b", "stablelm-3b", 1, 4, 1024
 S_SHAPE, S_TIMEOUT, S_SAMPLES = (2, 2), 300, 256
 S_NODROP = (2, 64)
 S_CPU_BATCH_SEQ = (2, 256)
@@ -323,6 +344,34 @@ T_ARCH, T_SB, T_BATCH, T_SEQ, T_PROMPT, T_PEAK_TOL = "stablelm-3b", 2, 4, 1024, 
 T2_CELLS = (("moonshot-v1-16b-a3b", "train_4k"), ("minitron-8b", "prefill_32k"),
             ("qwen1.5-110b", "decode_32k"), ("zamba2-7b", "long_500k"))
 T2_SB, T2_TIMEOUT = 2, 300
+# path (u), the reference's memory plan and the example twins: (u1) the loss
+# at gemma3-12b's head (vocabulary 262,144, d_model 3840) on U_LOSS_BS float32
+# hidden states (16 rows of train_4k's 4096 tokens); (u2) gemma3-12b's global
+# attention block at full width (16 heads of 256, 8 KV heads) on U_ATTN_BS
+# tokens; both routes' gradients held at U_TOL of their largest entry
+# (float32 sums in another order); (u3) the decode sweep's log-sum-exp at
+# (j)'s, (p)'s and a one-split shape; (u4) the five example twins at their
+# defaults, one subprocess each, under U_EX_TIMEOUT: those of U_ALONE (a
+# timing ratio among their claims) alone on the card after the others
+U_ARCH, U_LOSS_BS, U_ATTN_BS, U_TOL, U_EX_TIMEOUT = "gemma3-12b", (16, 4096), (2, 4096), 1e-4, 300
+EXAMPLES = ("quickstart", "krr_m_sweep", "sketched_pca_kmeans", "long_context_serve",
+            "train_lm")
+U_ALONE = ("long_context_serve",)
+# runs one example twin (argv: its path and arguments) and prints, after it,
+# every kernel's launches in that process
+RUN_EXAMPLE = r"""
+import json, os, runpy, sys, time
+sys.argv = sys.argv[1:]
+sys.path.insert(0, os.path.dirname(sys.argv[0]))   # as `python <script>` does
+t0 = time.perf_counter()
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+finally:
+    from repro_torch.kernels.accum_apply import kernel as KN
+    from repro_torch.kernels.landmark_attention import kernel as LK
+    print(f"SECONDS {time.perf_counter() - t0:.1f}")
+    print("LAUNCHES " + json.dumps({f.__name__: f.launches for f in KN.KERNELS + LK.KERNELS}))
+"""
 
 SRC = "src/repro_torch/kernels/accum_apply/csrc/accum_apply.cu"
 LSRC = "src/repro_torch/kernels/landmark_attention/csrc/landmark_attention.cu"
@@ -2232,6 +2281,299 @@ def dryrun_path(torch, dev, smi: str, *, cfg=None, train=(T_BATCH, T_SEQ), promp
     print(f"  (t) {time.perf_counter() - t_all:.1f} s; card: {smi}")
 
 
+def unchecked_core(q, k, v, window, q_chunk, out_dtype):
+    """The attention core as ``models.attention`` had it before the
+    recomputing chunk: each chunk's float32 scores kept by autograd for the
+    backward.  (u2)'s yardstick."""
+    import torch
+
+    from repro_torch.models.attention import NEG_INF, softmax_scale
+
+    S, scale = q.shape[1], softmax_scale(q.shape[-1])
+    qc = S // max(S // q_chunk, 1)
+    outs = []
+    for s0 in range(0, S, qc):
+        s1 = min(S, s0 + qc)
+        k0 = 0 if window is None else max(0, s0 - window + 1)
+        qpos = torch.arange(s0, s1, device=q.device)
+        kpos = torch.arange(k0, s1, device=q.device)
+        logits = torch.einsum("bqhgd,bshd->bhgqs", q[:, s0:s1].float(),
+                              k[:, k0:s1].float()) * scale
+        mask = kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > (qpos[:, None] - window)
+        p = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+        outs.append(torch.einsum("bhgqs,bshd->bqhgd", p, v[:, k0:s1].float()).to(out_dtype))
+    return torch.cat(outs, dim=1)
+
+
+def xent_chunk_plain(h, labels, mask, W):
+    """One loss chunk's plain ops, (u1)'s yardstick under
+    ``torch.utils.checkpoint`` (``models.common`` before the one-buffer
+    backward)."""
+    import torch
+
+    logits = h.float() @ W.T
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum((lse - lab) * mask), torch.sum(mask)
+
+
+def memory_plan_path(torch, dev, smi: str, tmp: Path, *, cfg=None, loss_bs=U_LOSS_BS,
+                     attn_bs=U_ATTN_BS, lse_shapes=None, examples=EXAMPLES,
+                     example_args=None, timeout: float = U_EX_TIMEOUT) -> dict:
+    """Path (u): the reference's memory plan for training, the decode
+    sweep's log-sum-exp and the example twins.  Returns {"launches": every
+    kernel's launches summed over the twins' processes, "lse": (u3)'s row}.
+
+    (u3) runs first, alone on the card, then (u4) in the background beside
+    (u1) and (u2): each of ``examples``
+    (examples/<name>_torch.py at its defaults and ``--check``) in a
+    subprocess of its own (``RUN_EXAMPLE``, an autotune cache file of its
+    own under ``tmp``), all under ``timeout``; those of U_ALONE, whose
+    claims hold a timing ratio, alone on the card after the rest have
+    ended.  Each must exit 0 with every claim it checks holding, and print
+    the kernels it launched.
+    (u1) ``chunked_xent``'s loss and gradients at ``cfg``'s head (the
+    one-buffer backward, ``_XentChunk``) against the same chunks run as
+    plain ops under ``torch.utils.checkpoint``, the route it replaced: the
+    rise of ``max_memory_allocated`` over each call beside the rise
+    reckoned (printed first), the losses bit for bit, the gradients at
+    U_TOL.  (u2) ``attn_forward`` of ``cfg``'s global attention block at
+    full width, forward and backward, with the recomputing chunk
+    (``_CausalChunk``) and with ``unchecked_core``: the rises, the reckoned
+    ones first, and the outputs and gradients at U_TOL.  (u3) the decode
+    sweep's log-sum-exp (``landmark_attention(..., lse=True)``) against the
+    plain version's at each of ``lse_shapes`` (P, G, L, Dh) in float32 and
+    bfloat16, its output bit for bit the launch's without it, and its time
+    beside that launch's, the plain version's, the byte bound and the
+    library's one call that returns the output and its log-sum-exp
+    (``torch.ops.aten._scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp``, the bias as its float mask)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.accum_apply import autotune as AT
+    from repro_torch.kernels.landmark_attention import kernel as LK
+    from repro_torch.kernels.landmark_attention import ref as LR
+    from repro_torch.models import attention as AM
+    from repro_torch.models.common import chunked_xent, rope_table
+    from torch.utils.checkpoint import checkpoint
+
+    t_all = time.perf_counter()
+    cfg = cfg or get_config(U_ARCH)
+    cuda = dev.type == "cuda"
+    example_args = example_args or {}
+
+    # ---- (u3) the decode sweep's log-sum-exp ----------------------------------
+    lse_row = {}
+    gl = torch.Generator(device=dev).manual_seed(7)
+    # a rehearsal on the CPU takes the plain version in the kernel's place
+    kernel = LK.landmark_attention if cuda else LR.landmark_attention_ref
+    for P, G, L, Dh in lse_shapes or ((32, 4, 1024, 128), (128, 1, 1024, 112),
+                                      (512, 2, 1024, 256)):
+        q, kt, M = (torch.randn(shape, generator=gl, device=dev)
+                    for shape in ((P, G, Dh), (P, L, Dh), (P, L, Dh)))
+        mass = 3 * torch.rand((P, L), generator=gl, device=dev)
+        bias = torch.where(mass < 0.3, -1e30, torch.log(mass))
+        for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            qq, kk, MM = q.to(dt), kt.to(dt), M.to(dt)
+            out, lse = kernel(qq, kk, MM, bias, lse=True)
+            plain, plain_lse = LR.landmark_attention_ref(qq, kk, MM, bias, lse=True)
+            e_lse = close(lse, plain_lse, 1e-5)
+            e_out = close(out, plain, tol)
+            same = torch.equal(out, kernel(qq, kk, MM, bias))
+            nsplit, _ = LK.plan(P, G, L, Dh, Dh, dt)
+            name = f"P={P} G={G} L={L} Dh={Dh} {str(dt).split('.')[-1]}"
+            check(e_lse[2] and e_out[2] and same and lse.shape == (P, G),
+                  f"(u3) {name} ({nsplit} splits): lse within {e_lse[1]:.2e} of the plain "
+                  f"version's largest (tol 1e-5), the output {e_out[1]:.2e} (tol {tol:g}) and "
+                  f"bit for bit the launch's without the lse")
+            if cuda:
+                ms, dms = timed(torch, lambda: LK.landmark_attention(qq, kk, MM, bias, lse=True))
+                ms0, dms0 = timed(torch, lambda: LK.landmark_attention(qq, kk, MM, bias))
+                pms, _ = timed(torch, lambda: LR.landmark_attention_ref(qq, kk, MM, bias,
+                                                                        lse=True))
+                # the library call: memory-efficient SDPA, which takes a bias
+                # and returns each row's log-sum-exp, in the inputs' dtype
+                qs, ks, vs = qq[:, None], kk[:, None], MM[:, None]
+                bs = bias[:, None, None, :].expand(P, 1, G, L).to(dt).contiguous()
+
+                def library():
+                    return torch.ops.aten._scaled_dot_product_efficient_attention(
+                        qs, ks, vs, bs, True)
+
+                lib_out, lib_lse = library()[:2]
+                e_lib = close(lib_lse[:, 0, :G].float(), plain_lse, 1e-5)
+                e_lout = close(lib_out[:, 0], plain, tol)
+                lms, ldms = timed(torch, library)
+                nbytes = (q.numel() + kt.numel() + M.numel() + P * G * Dh) * qq.element_size() \
+                    + (bias.numel() + P * G) * 4
+                b, by = bound_ms(nbytes, 2 * P * G * L * 2 * Dh)
+                share = f"{b / dms:.1%} of it on device time" if dms else "device not measured"
+                print(f"  (u3) {name}: with the lse {ms:.4f} ms (device {dms}), without "
+                      f"{ms0:.4f} ms (device {dms0}), plain {pms:.4f} ms, the library's "
+                      f"_scaled_dot_product_efficient_attention with its lse {lms:.4f} ms "
+                      f"(device {ldms}; its lse {e_lib[1]:.2e} and output {e_lout[1]:.2e} of "
+                      f"the plain version's largest), bound {b:.5f} ms by {by} ({share})")
+                lse_row[name] = dict(max_abs_err=e_lse[0], max_rel_err=e_lse[1], ms=ms,
+                                     device_ms=dms, ms_without=ms0, device_ms_without=dms0,
+                                     plain_ms=pms, bound_ms=b, bound_by=by, splits=nsplit,
+                                     library_ms=lms, library_device_ms=ldms,
+                                     library_lse_rel_err=e_lib[1])
+                del qs, ks, vs, bs, lib_out, lib_lse
+        del q, kt, M, mass, bias, qq, kk, MM
+
+    # ---- (u4) the example twins, in the background beside (u1) and (u2) ------
+    root = Path(__file__).resolve().parent
+
+    def start(name):
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(root / "src"), os.environ.get("PYTHONPATH", "")]))
+        env[AT.ENV_CACHE] = str(tmp / f"example_{name}.json")
+        return subprocess.Popen(
+            [sys.executable, "-c", RUN_EXAMPLE, str(root / "examples" / f"{name}_torch.py"),
+             "--check", "--device", dev.type, *example_args.get(name, [])],
+            env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    procs = {name: start(name) for name in examples if name not in U_ALONE}
+
+    def rise(fn):
+        """(fn(), the rise of the allocated bytes over the call, seconds)."""
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+            return out, torch.cuda.max_memory_allocated() - base, time.perf_counter() - t0
+        return out, float("nan"), time.perf_counter() - t0
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    # ---- (u1) the loss at the head --------------------------------------------
+    (B, S), D, V, c = loss_bs, cfg.d_model, cfg.vocab_size, 512
+    buf, head, hb = B * min(c, S) * V * 4, V * D * 4, B * S * D * 4
+    print(f"  (u1) predicted rises: the one-buffer backward {(buf + 2 * head + 2 * hb) / 1e9:.2f}"
+          f" GB (a (B, c, V) buffer {buf / 1e9:.2f}, the head's gradient twice, h's twice); "
+          f"under torch.utils.checkpoint {(5 * buf + 2 * head + 2 * hb) / 1e9:.2f} GB (five "
+          f"buffers)")
+    h = (torch.randn((B, S, D), generator=g, device=dev) / math.sqrt(D)).requires_grad_()
+    W = (0.02 * torch.randn((V, D), generator=g, device=dev)).requires_grad_()
+    labels = torch.randint(0, V, (B, S), generator=g, device=dev)
+    mask = torch.ones((B, S), dtype=torch.float32, device=dev)
+
+    def checkpointed():
+        n = max(S // c, 1)
+        hc, lc, mc = (x.reshape(B, n, S // n, *x.shape[2:]) for x in (h, labels, mask))
+        ls = ct = 0
+        for i in range(n):
+            a, b = checkpoint(xent_chunk_plain, hc[:, i], lc[:, i], mc[:, i], W,
+                              use_reentrant=False)
+            ls, ct = ls + a, ct + b
+        loss = ls / torch.clamp(ct, min=1.0)
+        return (loss.detach(), *torch.autograd.grad(loss, [h, W]))
+
+    def one_buffer():
+        loss, _ = chunked_xent(h, W, labels, mask)
+        return (loss.detach(), *torch.autograd.grad(loss, [h, W]))
+
+    old, old_rise, old_s = rise(checkpointed)
+    new, new_rise, new_s = rise(one_buffer)
+    print(f"  (u1) loss and gradients at {U_ARCH}'s head, h {tuple(h.shape)} float32, W "
+          f"{tuple(W.shape)}: one-buffer backward rise {new_rise / 1e9:.2f} GB, {new_s:.2f} s; "
+          f"torch.utils.checkpoint {old_rise / 1e9:.2f} GB, {old_s:.2f} s; card: {smi}")
+    errs = [close(a, b, U_TOL) for a, b in zip(new[1:], old[1:])]
+    check(torch.equal(new[0], old[0]) and all(e[2] for e in errs),
+          f"(u1) loss {new[0].item():.6f} bit for bit; dh, dW within "
+          f"{[f'{e[1]:.2e}' for e in errs]} of their largest (tol {U_TOL})")
+    if cuda:
+        check(new_rise < old_rise and new_rise <= 2 * buf + 3 * head + 4 * hb,
+              f"(u1) the one-buffer rise {new_rise / 1e9:.2f} GB at most two buffers plus "
+              f"the head's and h's gradients ({(2 * buf + 3 * head + 4 * hb) / 1e9:.2f} GB), "
+              f"below checkpoint's {old_rise / 1e9:.2f}")
+    del h, W, labels, mask, old, new
+
+    # ---- (u2) the attention block ---------------------------------------------
+    (B, S), H, Hkv, Dh = attn_bs, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qc = min(512, S)
+    scores, act = B * H * qc * S * 4, B * S * H * Dh * 4
+    print(f"  (u2) predicted rises: the recomputing chunk {(3 * scores + 10 * act) / 1e9:.2f} "
+          f"GB (three of the last chunk's scores, {scores / 1e9:.3f} GB each, and ten "
+          f"activations); every chunk's scores kept "
+          f"{(B * H * S * (S + qc) // 2 * 4 + 10 * act) / 1e9:.2f} GB")
+    p = {k: v.requires_grad_() for k, v in
+         AM.init_attn(torch.Generator(device=dev).manual_seed(1), cfg,
+                      dtype=torch.float32).items()}
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=dev).requires_grad_()
+    r = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+    sin, cos = rope_table(torch.arange(S, device=dev), Dh, cfg.rope_theta)
+    leaves = [x, p["wq"], p["wk"], p["wv"], p["wo"]]
+
+    def block():
+        out = AM.attn_forward(p, x, cfg, sin, cos, q_chunk=qc)
+        return (out.detach(), *torch.autograd.grad(out, leaves, r))
+
+    new, new_rise, new_s = rise(block)
+    core, AM._causal_core = AM._causal_core, unchecked_core
+    try:
+        old, old_rise, old_s = rise(block)
+    finally:
+        AM._causal_core = core
+    print(f"  (u2) {U_ARCH}'s attention block, B={B} S={S} H={H} (KV {Hkv}) Dh={Dh}, forward "
+          f"and backward: recomputing chunk rise {new_rise / 1e9:.3f} GB, {new_s:.2f} s; "
+          f"every chunk's scores kept {old_rise / 1e9:.3f} GB, {old_s:.2f} s; card: {smi}")
+    errs = [close(a, b, U_TOL) for a, b in zip(new, old)]
+    check(all(e[2] for e in errs),
+          f"(u2) output and gradients (x, wq, wk, wv, wo) within "
+          f"{[f'{e[1]:.2e}' for e in errs]} of their largest (tol {U_TOL})")
+    if cuda:
+        check(new_rise < old_rise, f"(u2) the recomputing chunk's rise {new_rise / 1e9:.3f} GB "
+                                   f"below {old_rise / 1e9:.3f}")
+    del p, x, r, new, old
+
+    # ---- (u4) the example twins' results --------------------------------------
+    launches: dict = {}
+
+    def finish(name, proc, beside):
+        try:
+            log = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t_all)))[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log = proc.communicate()[0]
+        lines = log.splitlines()
+        # the twin's own seconds (its process's start to its end: imports and
+        # the kernels' load included)
+        wall_s = float(next((ln[8:] for ln in lines if ln.startswith("SECONDS ")), "nan"))
+        got = json.loads(next((ln[9:] for ln in lines if ln.startswith("LAUNCHES ")), "{}"))
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        claims = [ln for ln in lines if ln.startswith("[check]")]
+        print(f"  (u4) {name}_torch.py: exit {proc.returncode}, {wall_s:.1f} s wall in its "
+              f"process ({beside}); {claims[-1] if claims else 'no [check]'}; "
+              f"kernels launched {({k: v for k, v in got.items() if v})}")
+        for ln in lines:
+            if not ln.startswith(("LAUNCHES ", "SECONDS ", "[loop]", "[check]")):
+                print(f"      {ln}")
+        n_launched = sum(got.values())
+        want = (n_launched == 0 if name == "train_lm" else n_launched > 0) or not cuda
+        if name == "long_context_serve" and cuda:
+            want = want and got.get("landmark_attention", 0) > 0
+        ok = proc.returncode == 0 and len(claims) == 1 and want
+        what = "none: training reaches no kernel" if name == "train_lm" else "some"
+        check(ok, f"(u4) {name}_torch.py exits 0 with its claims holding and its kernels "
+                  f"launched ({what})")
+
+    for name, proc in procs.items():
+        finish(name, proc, "started with the others, beside (u1)–(u2)")
+    for name in examples:
+        if name in U_ALONE:
+            finish(name, start(name), "alone on the card")
+    print(f"  (u) {time.perf_counter() - t_all:.1f} s; card: {smi}")
+    return {"launches": launches, "lse": lse_row}
+
+
 def main() -> int:
     """Run the checks and the main path; return the exit code."""
     # path (o) trains deterministically: cuBLAS reads this when CUDA starts
@@ -3654,6 +3996,24 @@ def main() -> int:
           f"path (t) launched landmark_attention {launches['dryrun']['landmark_attention']} "
           f"times and no other kernel ({others})")
 
+    # ---- 14. path (u): the memory plan and the example twins ---------------- #
+    # once, its launch counts from 0: in this process only (u3)'s checks
+    # launch (landmark_attention), and are undone; the path's launches are
+    # the twins', each counted in its own process from 0 and added up
+    print(f"\n== path (u): the memory plan for training and the example twins; card: {smi} ==")
+    torch.cuda.empty_cache()
+    print(f"  device memory held before (u): {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    reset_counts()
+    plan = memory_plan_path(torch, dev, smi, tmp)
+    own = {k: v for k, v in counts().items() if v}
+    check(set(own) <= {"landmark_attention"},
+          f"path (u): in this process only (u3)'s checks launched ({own})")
+    reset_counts()
+    launches["examples"] = {f.__name__: plan["launches"].get(f.__name__, 0) for f in ALL}
+    check(sum(launches["examples"].values()) > 0,
+          f"path (u): the twins launched {launches['examples']}")
+    rows["landmark_attention"]["lse"] = plan["lse"]
+
     # device ms on the paths: pass 3's KRR, engine and serving paths and
     # (n1) summed by wrapper under the profiler, and path (m)'s calls timed
     # one by one ((n2)'s ranks are not profiled)
@@ -3670,7 +4030,7 @@ def main() -> int:
               f"{row['library_ms']}); geometry {row.get('geometry')} by "
               f"{row['geometry_by']}")
     # launches: the sum over the main paths of pass 2, path (m), path (n)
-    # (both parts), (o), (p), (q), (r), (s) and (t), each counted from 0
+    # (both parts), (o), (p), (q), (r), (s), (t) and (u), each counted from 0
     kernels = [dict(name=f.__name__, route="cuda", source=SRC if f in KN.KERNELS else LSRC,
                     launches=sum(c[f.__name__] for c in launches.values()),
                     launches_by_path={p: c[f.__name__] for p, c in launches.items()},

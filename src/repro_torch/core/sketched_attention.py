@@ -289,7 +289,7 @@ def sketch_prefill_attend(q_seq: torch.Tensor, k_seq: torch.Tensor,
 
 
 def sketch_decode_attend(q_t: torch.Tensor, cache: SketchCache, *,
-                         use_kernel: bool | None = None) -> torch.Tensor:
+                         use_kernel: bool | None = None, lse: bool = False):
     """One-token attention over the compressed cache with log-mass correction.
 
     q_t: (B, H, Dh) with H = G·Hkv (GQA groups broadcast).  Returns
@@ -297,7 +297,10 @@ def sketch_decode_attend(q_t: torch.Tensor, cache: SketchCache, *,
     softmax attention when every slot holds one token.  ``use_kernel``
     (default: True on a CUDA device) routes the softmax·V contraction through
     the ``landmark_attention`` kernel with the log-mass correction (and −1e30
-    for empty slots) in its bias lane: one launch per call."""
+    for empty slots) in its bias lane: one launch per call.  With ``lse``
+    the pair of the output, float32, and each row's log-sum-exp of its
+    logits, (B, H) float32 (the same launch writes it): a sharded decode
+    combines the partials of its slot shards by them."""
     B, H, Dh = q_t.shape
     Hkv, d_slots = cache.k_sum.shape[1:3]
     G = H // Hkv
@@ -314,12 +317,16 @@ def sketch_decode_attend(q_t: torch.Tensor, cache: SketchCache, *,
         out = landmark_attend(qg.reshape(B * Hkv, G, Dh),
                               kbar.reshape(B * Hkv, d_slots, Dh),
                               vbar.reshape(B * Hkv, d_slots, Dh),
-                              bias.reshape(B * Hkv, d_slots))
+                              bias.reshape(B * Hkv, d_slots), lse=lse)
+        if lse:
+            return out[0].reshape(B, H, Dh), out[1].reshape(B, H)
         return out.reshape(B, H, Dh).to(q_t.dtype)
     logits = torch.einsum("bhgk,bhdk->bhgd", qg, kbar) * softmax_scale(Dh)
     logits = logits + bias[:, :, None, :]
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgd,bhdk->bhgk", p, vbar)
+    if lse:
+        return out.reshape(B, H, Dh), torch.logsumexp(logits, dim=-1).reshape(B, H)
     return out.reshape(B, H, Dh).to(q_t.dtype)
 
 

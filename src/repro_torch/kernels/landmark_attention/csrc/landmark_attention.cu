@@ -266,6 +266,10 @@ __device__ __forceinline__ void softmax_step(float* Ps, float* m_s, float* d_s, 
 //     the splits in split order.  One launch; no float atomics.
 //   * The partition is kernel.py `plan`'s, a function of the shape alone,
 //     so two runs give the same bits.
+//   * Optionally (`lse` not null) each row's log-sum-exp, max + log(den),
+//     from the values the output's division already holds: B·H floats for
+//     a sharded sketched decode to combine its ranks' partials
+//     (models/attention.py `_on_sketch_cache`).  No bit of `out` changes.
 //
 //   grid.x: splits of the key axis; grid.y: problem × value chunk of 128
 //   columns; blockDim.x: 32 · W.
@@ -301,10 +305,12 @@ __host__ __device__ inline int decode_batch(int S, int Dh) {
   return decode_batch_of(decode_rows(S), Dh > 128 ? 2 : 1);
 }
 // A block's shared memory: the warps' partials, or the last block's
-// staging of the splits' maxima, denominators and weights.
+// staging of the splits' maxima, denominators and weights and the rows'
+// maxima.
 template <int G, int NCH>
 __host__ __device__ inline size_t decode_smem_bytes(int warps) {
-  const size_t recs = (size_t)warps * Decode<G, NCH>::RS, stage = 3 * kDecodeMaxSplits * G;
+  const size_t recs = (size_t)warps * Decode<G, NCH>::RS,
+               stage = 3 * kDecodeMaxSplits * G + G;
   return (recs > stage ? recs : stage) * sizeof(float);
 }
 
@@ -462,9 +468,9 @@ template <typename T, typename TO, int G, int NCH>
 __global__ void __launch_bounds__(kDecodeMaxWarps * 32, 2)
     attend_decode_kernel(const T* __restrict__ q, const T* __restrict__ keys,
                          const T* __restrict__ vals, const float* __restrict__ bias,
-                         TO* __restrict__ out, float* __restrict__ part,
-                         int* __restrict__ arrivals, int S, int Lk, int Dh, int Dv,
-                         int mask_from, int run, float scale) {
+                         TO* __restrict__ out, float* __restrict__ lse,
+                         float* __restrict__ part, int* __restrict__ arrivals, int S, int Lk,
+                         int Dh, int Dv, int mask_from, int run, float scale) {
   using D = Decode<G, NCH>;
   constexpr int REC = D::REC, RS = D::RS;
   extern __shared__ __align__(16) float dsm[];
@@ -536,6 +542,9 @@ __global__ void __launch_bounds__(kDecodeMaxWarps * 32, 2)
     }
     if (mine == nullptr) {
       if (g < S && col0 + col < Dv) store(out + ((size_t)prob * S + g) * Dv + col0 + col, a / den);
+      // each value chunk has the same scores: the first writes the row's lse
+      if (lse != nullptr && g < S && col == 0 && col0 == 0)
+        lse[(size_t)prob * S + g] = M + logf(den);
     } else {
       mine[e] = a;
       if (col == 0) {
@@ -560,6 +569,7 @@ __global__ void __launch_bounds__(kDecodeMaxWarps * 32, 2)
   float* sm = dsm;
   float* sd = sm + nsplit * G;
   float* sw = sd + nsplit * G;
+  float* sx = sw + nsplit * G;
   for (int i = threadIdx.x; i < nsplit * G; i += blockDim.x) {
     const float* r = all + (size_t)(i / G) * REC + G * kDVT + i % G;
     sm[i] = __ldcg(r);
@@ -571,6 +581,7 @@ __global__ void __launch_bounds__(kDecodeMaxWarps * 32, 2)
     float M = -INFINITY;
     for (int s = 0; s < nsplit; ++s) M = fmaxf(M, sm[s * G + g]);
     sw[i] = expf(sm[i] - M);
+    if (i < G) sx[i] = M;
   }
   __syncthreads();
   for (int e = threadIdx.x; e < G * kDVT; e += blockDim.x) {
@@ -585,6 +596,7 @@ __global__ void __launch_bounds__(kDecodeMaxWarps * 32, 2)
       a = fmaf(w, __ldcg(r + (size_t)s * REC), a);
     }
     store(out + ((size_t)prob * S + g) * Dv + col0 + col, a / den);
+    if (lse != nullptr && col == 0 && col0 == 0) lse[(size_t)prob * S + g] = sx[g] + logf(den);
   }
   if (threadIdx.x == 0) arrivals[z] = 0;
 }
@@ -1064,41 +1076,44 @@ cudaError_t allow_smem(const void* kern, size_t bytes) {
 // G = 8).
 template <typename T, typename TO, int G, int NCH>
 cudaError_t launch_decode_rows(const void* q, const void* keys, const void* vals,
-                               const float* bias, void* out, float* part, int* arrivals, int P,
+                               const float* bias, void* out, float* lse, float* part,
+                               int* arrivals, int P,
                                int S, int Lk, int Dh, int Dv, int n_valid, int nsplit, int run,
                                int warps, float scale, cudaStream_t stream) {
   const int ndv = (Dv + kDVT - 1) / kDVT;
   attend_decode_kernel<T, TO, G, NCH><<<dim3(nsplit, P * ndv), 32 * warps,
                                         decode_smem_bytes<G, NCH>(warps), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(keys), static_cast<const T*>(vals), bias,
-      static_cast<TO*>(out), part, arrivals, S, Lk, Dh, Dv, n_valid, run, scale);
+      static_cast<TO*>(out), lse, part, arrivals, S, Lk, Dh, Dv, n_valid, run, scale);
   return cudaGetLastError();
 }
 
 template <typename T, typename TO, int NCH>
 cudaError_t launch_decode_dh(const void* q, const void* keys, const void* vals,
-                             const float* bias, void* out, float* part, int* arrivals, int P,
+                             const float* bias, void* out, float* lse, float* part,
+                             int* arrivals, int P,
                              int S, int Lk, int Dh, int Dv, int n_valid, int nsplit, int run,
                              int warps, float scale, cudaStream_t s) {
   switch (decode_rows(S)) {
     case 1:
-      return launch_decode_rows<T, TO, 1, NCH>(q, keys, vals, bias, out, part, arrivals, P, S,
+      return launch_decode_rows<T, TO, 1, NCH>(q, keys, vals, bias, out, lse, part, arrivals, P, S,
                                                Lk, Dh, Dv, n_valid, nsplit, run, warps, scale, s);
     case 2:
-      return launch_decode_rows<T, TO, 2, NCH>(q, keys, vals, bias, out, part, arrivals, P, S,
+      return launch_decode_rows<T, TO, 2, NCH>(q, keys, vals, bias, out, lse, part, arrivals, P, S,
                                                Lk, Dh, Dv, n_valid, nsplit, run, warps, scale, s);
     case 4:
-      return launch_decode_rows<T, TO, 4, NCH>(q, keys, vals, bias, out, part, arrivals, P, S,
+      return launch_decode_rows<T, TO, 4, NCH>(q, keys, vals, bias, out, lse, part, arrivals, P, S,
                                                Lk, Dh, Dv, n_valid, nsplit, run, warps, scale, s);
     default:
-      return launch_decode_rows<T, TO, 8, NCH>(q, keys, vals, bias, out, part, arrivals, P, S,
+      return launch_decode_rows<T, TO, 8, NCH>(q, keys, vals, bias, out, lse, part, arrivals, P, S,
                                                Lk, Dh, Dv, n_valid, nsplit, run, warps, scale, s);
   }
 }
 
 template <typename T, typename TO>
 cudaError_t launch_decode(const void* q, const void* keys, const void* vals, const float* bias,
-                          void* out, float* part, int* arrivals, int P, int S, int Lk, int Dh,
+                          void* out, float* lse, float* part, int* arrivals, int P, int S, int Lk,
+                          int Dh,
                           int Dv, int n_valid, int nsplit, int run, int warps, float scale,
                           cudaStream_t s) {
   if (S < 1 || S > 8 || Dh < 1 || Dh > 256 || warps < 1 || warps > kDecodeMaxWarps ||
@@ -1106,9 +1121,9 @@ cudaError_t launch_decode(const void* q, const void* keys, const void* vals, con
       (nsplit > 1 && (part == nullptr || arrivals == nullptr)))
     return cudaErrorInvalidValue;
   if (Dh > 128)
-    return launch_decode_dh<T, TO, 2>(q, keys, vals, bias, out, part, arrivals, P, S, Lk, Dh,
+    return launch_decode_dh<T, TO, 2>(q, keys, vals, bias, out, lse, part, arrivals, P, S, Lk, Dh,
                                       Dv, n_valid, nsplit, run, warps, scale, s);
-  return launch_decode_dh<T, TO, 1>(q, keys, vals, bias, out, part, arrivals, P, S, Lk, Dh, Dv,
+  return launch_decode_dh<T, TO, 1>(q, keys, vals, bias, out, lse, part, arrivals, P, S, Lk, Dh, Dv,
                                     n_valid, nsplit, run, warps, scale, s);
 }
 
@@ -1155,12 +1170,13 @@ cudaError_t launch_mma_tiled(const void* q, const void* keys, const void* vals,
 // partial maxima, denominators and accumulators at the head of `scratch`).
 template <typename T, typename TO>
 cudaError_t dispatch_attend(int bq, const void* q, const void* keys, const void* vals,
-                            const float* bias, void* out, float* scratch, int* arrivals, int P,
-                            int S, int Lk, int Dh, int Dv, int n_valid, int nsplit, int per,
-                            int warps, float scale, cudaStream_t s) {
+                            const float* bias, void* out, float* lse, float* scratch,
+                            int* arrivals, int P, int S, int Lk, int Dh, int Dv, int n_valid,
+                            int nsplit, int per, int warps, float scale, cudaStream_t s) {
   if (bq == 8)
-    return launch_decode<T, TO>(q, keys, vals, bias, out, scratch, arrivals, P, S, Lk, Dh, Dv,
-                                n_valid, nsplit, per, warps, scale, s);
+    return launch_decode<T, TO>(q, keys, vals, bias, out, lse, scratch, arrivals, P, S, Lk, Dh,
+                                Dv, n_valid, nsplit, per, warps, scale, s);
+  if (lse != nullptr) return cudaErrorInvalidValue;  // the decode sweep's output alone
   const size_t rows = (size_t)nsplit * P * S;
   float* pm = scratch;
   float* pd = scratch != nullptr ? pm + rows : nullptr;
@@ -1237,8 +1253,8 @@ cudaError_t launch_stats(const void* qt, const void* kt, const void* k, const vo
       static_cast<const T*>(qt), static_cast<const T*>(kt), W, L, Dh, l_valid, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return dispatch_attend<T, float>(bs, qt, k, v, nullptr, BmV, scratch, arrivals, P, L, S, Dh,
-                                   Dv, n_valid, nsplit, per, warps, scale, stream);
+  return dispatch_attend<T, float>(bs, qt, k, v, nullptr, BmV, nullptr, scratch, arrivals, P, L,
+                                   S, Dh, Dv, n_valid, nsplit, per, warps, scale, stream);
 }
 
 }  // namespace
@@ -1246,7 +1262,10 @@ cudaError_t launch_stats(const void* qt, const void* kt, const void* k, const vo
 extern "C" {
 
 // out (P, S, Dv) in q's type from q (P, S, Dh), kt (P, L, Dh), M (P, L, Dv),
-// bias (P, L) float32 or null.  bq is 8 where S ≤ 8 (the decode sweep: `per`
+// bias (P, L) float32 or null; lse (P, S) float32 or null: each row's
+// log-sum-exp of its logits, the decode sweep's alone (bq 8; it takes the
+// block's or the combine's max and denominator, and changes no bit of
+// out).  bq is 8 where S ≤ 8 (the decode sweep: `per`
 // keys a warp, `warps` warps a block; scratch holds P·⌈Dv/128⌉·nsplit
 // partials of ⌈S⌉₂·130 floats, ⌈S⌉₂ = S rounded up to 1, 2, 4 or 8, and
 // arrivals P·⌈Dv/128⌉ int counters at 0), else 64 or 128 (the tensor-core
@@ -1254,16 +1273,16 @@ extern "C" {
 // and denominators (nsplit, P, S) and accumulators (nsplit, P, S, Dv);
 // arrivals unused).  Scratch and arrivals are unused when nsplit = 1.
 int repro_landmark_attention(const void* q, const void* kt, const void* M, const float* bias,
-                             void* out, float* scratch, int* arrivals, int P, int S, int L,
-                             int Dh, int Dv, int nsplit, int per, int warps, int bq,
+                             void* out, float* lse, float* scratch, int* arrivals, int P, int S,
+                             int L, int Dh, int Dv, int nsplit, int per, int warps, int bq,
                              float scale, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16
-             ? dispatch_attend<__nv_bfloat16, __nv_bfloat16>(bq, q, kt, M, bias, out, scratch,
-                                                             arrivals, P, S, L, Dh, Dv, L,
-                                                             nsplit, per, warps, scale, s)
-             : dispatch_attend<float, float>(bq, q, kt, M, bias, out, scratch, arrivals, P, S,
-                                             L, Dh, Dv, L, nsplit, per, warps, scale, s);
+             ? dispatch_attend<__nv_bfloat16, __nv_bfloat16>(bq, q, kt, M, bias, out, lse,
+                                                             scratch, arrivals, P, S, L, Dh, Dv,
+                                                             L, nsplit, per, warps, scale, s)
+             : dispatch_attend<float, float>(bq, q, kt, M, bias, out, lse, scratch, arrivals, P,
+                                             S, L, Dh, Dv, L, nsplit, per, warps, scale, s);
 }
 
 // W (P, L, L) and BmV (P, L, Dv) float32 from qt, kt (P, L, Dh), k (P, S, Dh),

@@ -84,8 +84,8 @@ def source_hash() -> str:
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_landmark_attention.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I,
-                                             I, I, I, F, I, P]
+    lib.repro_landmark_attention.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                             I, I, I, I, F, I, P]
     lib.repro_landmark_stats.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                                          I, I, I, I, I, F, I, P]
     lib.repro_landmark_check.argtypes = [I, I, I, P]
@@ -253,12 +253,14 @@ def _limits(P: int, rows: int, Dh: int, Dv: int) -> None:
 
 def landmark_attention(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
                        bias: torch.Tensor | None = None, *,
-                       bq: int | None = None) -> torch.Tensor:
+                       bq: int | None = None, lse: bool = False):
     """softmax(q k̃ᵀ/√Dh + bias)·M on the card for P problems: q (P, S, Dh),
     kt (P, L, Dh), M (P, L, Dv), one dtype (float32 or bfloat16), bias
     (P, L) float32 or None; ``bq`` query rows a block (default
     ``static_rows``).  Returns (P, S, Dv) in q's dtype, computed in
-    float32.  Replaces LA:54."""
+    float32; with ``lse`` (the decode sweep's alone, S ≤ 8) also each row's
+    log-sum-exp of its logits, (P, S) float32, written by the same launch
+    (no bit of the output changes).  Replaces LA:54."""
     dev = _cuda_device(q)
     P, S, Dh = q.shape
     L, Dv = M.shape[1:]
@@ -271,9 +273,12 @@ def landmark_attention(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
     if bq is None:
         bq = static_rows(S, Dh, q.dtype, q.dtype, dev)
     bq = _block_rows(bq, S, "bq")
+    if lse and S > 8:
+        raise ValueError(f"the log-sum-exp output is the decode sweep's (S ≤ 8), not S={S}")
     out = torch.empty((P, S, Dv), dtype=q.dtype, device=dev)
+    rows = torch.empty((P, S), dtype=torch.float32, device=dev) if lse else None
     if P == 0 or S == 0 or Dv == 0:
-        return out
+        return (out, rows) if lse else out
     if L == 0:
         raise ValueError("landmark_attention needs at least one landmark")
     nsplit, per = plan(P, S, L, Dv, Dh, q.dtype)
@@ -282,11 +287,11 @@ def landmark_attention(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
     with torch.cuda.device(dev), autotune.launch_range(landmark_attention):
         err = _lib().repro_landmark_attention(
             q.data_ptr(), kt.data_ptr(), M.data_ptr(), _ptr(bias), out.data_ptr(),
-            _ptr(scratch), _ptr(arrivals), P, S, L, Dh, Dv, nsplit, per, DECODE_WARPS, bq,
-            1.0 / math.sqrt(Dh), int(q.dtype == torch.bfloat16), stream)
+            _ptr(rows), _ptr(scratch), _ptr(arrivals), P, S, L, Dh, Dv, nsplit, per,
+            DECODE_WARPS, bq, 1.0 / math.sqrt(Dh), int(q.dtype == torch.bfloat16), stream)
     autotune.count_launch(landmark_attention)
     _raise_on(err, "landmark_attention")
-    return out
+    return (out, rows) if lse else out
 
 
 def landmark_stats(qt: torch.Tensor, kt: torch.Tensor, k: torch.Tensor,

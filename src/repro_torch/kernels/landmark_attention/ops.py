@@ -58,12 +58,15 @@ def _bq_candidates(S: int, fallback: tuple[int], Dh: int, dtype: torch.dtype,
 
 @routed
 def landmark_attend(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
-                    bias: torch.Tensor | None = None) -> torch.Tensor:
+                    bias: torch.Tensor | None = None, *, lse: bool = False):
     """softmax(q k̃ᵀ/√Dh + bias)·M for arbitrary (S, L).
 
     q: (S, Dh) or (P, S, Dh); kt: (…, L, Dh); M: (…, L, Dv); bias: (…, L)
     float32 or None (the decode path folds its log-mass correction and
-    empty-slot masks in here).  Returns (…, S, Dv) in q's dtype."""
+    empty-slot masks in here).  Returns (…, S, Dv) in q's dtype; with
+    ``lse`` (on a card S ≤ 8, the decode sweep's) the pair of it and each
+    row's log-sum-exp of its logits, (…, S) float32 (a padded landmark adds
+    nothing to it)."""
     single = q.ndim == 2
     q, kt, M = _batched(q, 3), _batched(kt, 3), _batched(M, 3)
     P, L = M.shape[:2]
@@ -77,15 +80,14 @@ def landmark_attend(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
             bias = torch.zeros((P, L), dtype=torch.float32, device=q.device)
         bias = torch.nn.functional.pad(bias, (0, pad), value=NEG_INF)
     if not _on_cuda(q):
-        out = ref.landmark_attention_ref(q, kt, M, bias)
-        return out[0] if single else out
+        return _unbatched(ref.landmark_attention_ref(q, kt, M, bias, lse=lse), single, lse)
     args = (q.contiguous(), kt.to(q.dtype).contiguous(), M.to(q.dtype).contiguous(),
             None if bias is None else bias.contiguous())
     if is_fake(q):
         # a dry run (launch.dryrun): shapes only — nothing launches, and the
         # autotune cache is not consulted
-        out = _dry_run_op()(*args)
-        return out[0] if single else out
+        out, rows = _dry_run_op()(*args, lse)
+        return _unbatched((out, rows) if lse else out, single, lse)
     S, Dh = q.shape[1:]
     fb = (K_.static_rows(S, Dh, q.dtype, q.dtype, q.device),)
     (bq,) = autotune.measured_blocks(
@@ -93,8 +95,14 @@ def landmark_attend(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
         _bq_candidates(S, fb, Dh, q.dtype, q.dtype, q.device),
         lambda c: K_.landmark_attention(*args, bq=c[0]), fb,
         concrete=autotune.is_concrete(*args[:3]), source=K_.source_hash())
-    out = K_.landmark_attention(*args, bq=bq)
-    return out[0] if single else out
+    return _unbatched(K_.landmark_attention(*args, bq=bq, lse=lse), single, lse)
+
+
+def _unbatched(out, single: bool, lse: bool):
+    """A router's result without the batch axis it added to one problem."""
+    if not single:
+        return out
+    return (out[0][0], out[1][0]) if lse else out[0]
 
 
 @functools.cache
@@ -102,25 +110,27 @@ def _dry_run_op():
     """The kernel's stand-in on fake tensors (``FakeTensorMode``: the dry
     run's abstract values), made at its first use: the custom op
     ``repro_torch::landmark_attention``, whose fake implementation gives the
-    output's shape and dtype (the plain version's), so that one rank's
-    recording charges it the kernel's operand and result bytes, and whose
-    FLOP formula (``torch.utils.flop_counter``) gives the two products the
-    kernel computes, 2·P·S·L·Dh + 2·P·S·L·Dv (the plain version's).  It
-    never computes: on a real tensor it raises (a real CUDA tensor launches
-    the kernel)."""
+    outputs' shapes and dtypes (the plain version's: the output, and each
+    row's log-sum-exp where ``lse`` asks for it, else an empty (P, 0)
+    tensor), so that one rank's recording charges it the kernel's operand
+    and result bytes, and whose FLOP formula (``torch.utils.flop_counter``)
+    gives the two products the kernel computes, 2·P·S·L·Dh + 2·P·S·L·Dv
+    (the plain version's).  It never computes: on a real tensor it raises (a
+    real CUDA tensor launches the kernel)."""
     from torch.utils.flop_counter import register_flop_formula
 
     @torch.library.custom_op("repro_torch::landmark_attention", mutates_args=())
-    def op(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
-           bias: torch.Tensor | None) -> torch.Tensor:
+    def op(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor, bias: torch.Tensor | None,
+           lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
         raise RuntimeError("landmark_attention's dry-run stand-in takes fake tensors only")
 
     @op.register_fake
-    def _(q, kt, M, bias):
-        return q.new_empty((*q.shape[:-1], M.shape[-1]))
+    def _(q, kt, M, bias, lse):
+        return (q.new_empty((*q.shape[:-1], M.shape[-1])),
+                q.new_empty(q.shape[:-1] if lse else (q.shape[0], 0), dtype=torch.float32))
 
     @register_flop_formula(torch.ops.repro_torch.landmark_attention)
-    def _(q_shape, kt_shape, M_shape, bias_shape, out_shape=None, **kw) -> int:
+    def _(q_shape, kt_shape, M_shape, bias_shape, lse=False, out_shape=None, **kw) -> int:
         (P, S, Dh), L, Dv = q_shape, kt_shape[1], M_shape[2]
         return 2 * P * S * L * (Dh + Dv)
 

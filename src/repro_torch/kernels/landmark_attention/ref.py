@@ -14,16 +14,18 @@ def _scale(Dh: int) -> torch.Tensor:
 
 
 def landmark_attention_ref(q: torch.Tensor, kt: torch.Tensor, M: torch.Tensor,
-                           bias: torch.Tensor | None = None) -> torch.Tensor:
+                           bias: torch.Tensor | None = None, *, lse: bool = False):
     """softmax(q k̃ᵀ/√Dh + bias)·M: q (..., S, Dh); kt (..., L, Dh);
     M (..., L, Dv); bias (..., L) or None.  Returns (..., S, Dv) in q's
-    dtype, computed in float32."""
+    dtype, computed in float32; with ``lse`` also each row's log-sum-exp of
+    its logits, (..., S) float32."""
     scale = _scale(q.shape[-1]).to(q.device)
     logits = q.float() @ kt.float().transpose(-1, -2) * scale
     if bias is not None:
         logits = logits + bias.float()[..., None, :]
     p = torch.softmax(logits, dim=-1)
-    return (p @ M.float()).to(q.dtype)
+    out = (p @ M.float()).to(q.dtype)
+    return (out, torch.logsumexp(logits, dim=-1)) if lse else out
 
 
 def landmark_stats_ref(qt: torch.Tensor, kt: torch.Tensor, k: torch.Tensor,

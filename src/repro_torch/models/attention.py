@@ -6,6 +6,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch._util import resolve_device
@@ -21,7 +22,6 @@ from repro_torch.core.sketched_attention import (
 from repro_torch.models.common import PARAM_DTYPE, apply_rope, dense_init
 from repro_torch.sharding import (
     constrain,
-    distribute_like,
     from_local,
     is_dtensor,
     local_box,
@@ -117,30 +117,71 @@ def _chunked_causal(q, k, v, cfg: ModelConfig, *, window: int | None, q_chunk: i
 
 def _causal_core(q, k, v, window: int | None, q_chunk: int, out_dtype) -> torch.Tensor:
     """q (B, S, Hkv, G, Dh), k/v (B, S, Hkv, Dh) → (B, S, Hkv, G, Dh), one
-    query chunk at a time so peak memory is O(B·H·q_chunk·S).  A chunk of
-    positions [s0, s1) reads keys [0, s1) only (with the window, [s0 −
-    window + 1, s1)): the reference masks the others, and they carry
-    exactly zero weight there.  The last chunk may be shorter than the
-    others."""
-    S, Dh = q.shape[1], q.shape[-1]
-    scale = softmax_scale(Dh)
+    query chunk at a time (``_CausalChunk``) so peak memory is
+    O(B·H·q_chunk·S), in the backward too.  A chunk of positions [s0, s1)
+    reads keys [0, s1) only (with the window, [s0 − window + 1, s1)): the
+    reference masks the others, and they carry exactly zero weight there.
+    The last chunk may be shorter than the others."""
+    S = q.shape[1]
+    scale = softmax_scale(q.shape[-1])
     qc = S // max(S // q_chunk, 1)
     outs = []
     for s0 in range(0, S, qc):
         s1 = min(S, s0 + qc)
         k0 = 0 if window is None else max(0, s0 - window + 1)
-        qpos = torch.arange(s0, s1, device=q.device)
-        kpos = torch.arange(k0, s1, device=q.device)
-        qblk = q[:, s0:s1].float()
-        kf, vf = k[:, k0:s1].float(), v[:, k0:s1].float()
-        logits = torch.einsum("bqhgd,bshd->bhgqs", qblk, kf) * scale
-        mask = kpos[None, :] <= qpos[:, None]
-        if window is not None:
-            mask &= kpos[None, :] > (qpos[:, None] - window)
-        logits = torch.where(mask, logits, NEG_INF)
-        o = torch.einsum("bhgqs,bshd->bqhgd", torch.softmax(logits, dim=-1), vf)
-        outs.append(o.to(out_dtype))
+        outs.append(_CausalChunk.apply(q[:, s0:s1], k[:, k0:s1], v[:, k0:s1], s0, k0,
+                                       window, scale, out_dtype))
     return torch.cat(outs, dim=1)
+
+
+def _chunk_probs(q, k, s0: int, k0: int, window: int | None, scale: float) -> torch.Tensor:
+    """softmax(q kᵀ·scale) of the query chunk at s0 over the keys from k0,
+    causal (and windowed), float32: q (B, c, Hkv, G, Dh), k (B, n, Hkv, Dh)
+    → (B, Hkv, G, c, n)."""
+    qpos = torch.arange(s0, s0 + q.shape[1], device=q.device)
+    kpos = torch.arange(k0, k0 + k.shape[1], device=q.device)
+    # out of place: remat="dots" caches the product's result for the recompute
+    logits = torch.einsum("bqhgd,bshd->bhgqs", q.float(), k.float()) * scale
+    mask = kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > (qpos[:, None] - window)
+    return torch.softmax(logits.masked_fill_(~mask, NEG_INF), dim=-1)
+
+
+class _CausalChunk(torch.autograd.Function):
+    """One query chunk of causal attention, o = softmax(q kᵀ·scale + mask)·v,
+    with the reference's memory plan: its chunk body is a ``jax.checkpoint``
+    (``repro.models.attention``), so no chunk's scores outlive its forward.
+    The forward keeps q's chunk, k and v (views: no new storage) and the
+    chunk's output; the backward recomputes the chunk's softmax P and forms
+    dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P ⊙ (dP − rowsum(dO ⊙ O)), dQ = dS·K·scale
+    and dK = dSᵀ·Q·scale, holding one chunk's scores at a time.  It does not
+    rerun the value product, as ``torch.utils.checkpoint`` of the chunk
+    would.  Products in float32; the gradients in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, s0, k0, window, scale, out_dtype):
+        p = _chunk_probs(q, k, s0, k0, window, scale)
+        o = torch.einsum("bhgqs,bshd->bqhgd", p, v.float()).to(out_dtype)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.chunk = (s0, k0, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        s0, k0, window, scale = ctx.chunk
+        p = _chunk_probs(q, k, s0, k0, window, scale)
+        dof = do.float()
+        dv = torch.einsum("bhgqs,bqhgd->bshd", p, dof)
+        rowsum = torch.sum(dof * o.float(), dim=-1).permute(0, 2, 3, 1)   # (B, Hkv, G, c)
+        ds = torch.einsum("bqhgd,bshd->bhgqs", dof, v.float())
+        ds.sub_(rowsum[..., None]).mul_(p)
+        del p
+        dq = torch.einsum("bhgqs,bshd->bqhgd", ds, k.float()).mul_(scale)
+        dk = torch.einsum("bhgqs,bqhgd->bshd", ds, q.float()).mul_(scale)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None,
+                None)
 
 
 def attn_forward(p, h: torch.Tensor, cfg: ModelConfig, sin, cos, *,
@@ -269,16 +310,18 @@ def attn_prefill_sketched(p, h: torch.Tensor, cache: SketchCache, cfg: ModelConf
     """Batched sketched-cache prefill: the fold of all L tokens' (k, v) plus
     evolving-cache attention (position t sees the cache after its own
     token's update — the semantics of L sequential decode steps).
-    slot_table: (L, m_r).  Returns (out (B, L, D), cache)."""
+    slot_table: (L, m_r).  Returns (out (B, L, D), cache).  On a mesh each
+    rank folds and attends for its own batch rows and KV heads; slots split
+    over ranks are gathered (``_on_sketch_cache``)."""
     B, L, _ = h.shape
     H, Dh = cfg.n_heads, cfg.head_dim
     q, k, v = _qkv(p, h, cfg, sin, cos)
 
-    def attend(q, k, v, cache):
+    def attend(q, k, v, cache, shard):
         return sketch_prefill_attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                      cache, slot_table, chunk=chunk)
 
-    o, cache = _on_sketch_cache(attend, q, k, v, cache)
+    o, cache = _on_sketch_cache(attend, q, k, v, cache, split_slots=False)
     out = o.transpose(1, 2).reshape(B, L, H * Dh).to(h.dtype) @ p["wo"]
     return out, cache
 
@@ -286,42 +329,103 @@ def attn_prefill_sketched(p, h: torch.Tensor, cache: SketchCache, cfg: ModelConf
 def attn_decode_sketched(p, h_t: torch.Tensor, cache: SketchCache, cfg: ModelConfig,
                          sin_t, cos_t, slots) -> tuple[torch.Tensor, SketchCache]:
     """One-token decode over the compressed cache: O(d_slots) per token and
-    O(d_slots·Dh) memory regardless of context length."""
+    O(d_slots·Dh) memory regardless of context length.  On a mesh each rank
+    computes its share, as the reference's partitioned program does: its
+    batch rows and KV heads, and of slots split over ranks its own, whose
+    partial outputs the ranks combine by their log-sum-exps
+    (``_on_sketch_cache``)."""
     B = h_t.shape[0]
     H, Dh = cfg.n_heads, cfg.head_dim
     q, k, v = _qkv(p, h_t, cfg, sin_t, cos_t)
 
-    def attend(q, k, v, cache):
-        cache = update_sketch_cache(cache, k[:, 0], v[:, 0], slots)
-        return sketch_decode_attend(q[:, 0].reshape(B, H, Dh), cache), cache
+    def attend(q, k, v, cache, shard):
+        if shard is None:
+            cache = update_sketch_cache(cache, k[:, 0], v[:, 0], slots)
+            return sketch_decode_attend(q[:, 0], cache), cache
+        cache = update_sketch_cache(cache, k[:, 0], v[:, 0], shard.local_slots(slots))
+        o, lse = sketch_decode_attend(q[:, 0], cache, lse=True)
+        return shard.combine(o, lse).to(q.dtype), cache
 
-    o, cache = _on_sketch_cache(attend, q, k, v, cache)
+    o, cache = _on_sketch_cache(attend, q, k, v, cache, split_slots=True)
     out = o.reshape(B, 1, H * Dh).to(h_t.dtype) @ p["wo"]
     return out, cache
 
 
-def _on_sketch_cache(attend, q, k, v, cache: SketchCache) -> tuple[torch.Tensor, SketchCache]:
-    """``attend(q, k, v, cache) → (o, new cache)``, the sketched cache's fold
-    and attention; on a mesh (DTensors) q, k, v and the compressed cache are
-    gathered whole on every rank and the step computed on them as on one
-    device (the kernel on a card), the attention's output a replicated
-    DTensor and each rank keeping its own shard of the new cache, placed as
-    the old one.  The cache is O(d_slots) a layer, and its slots and heads
-    may be split over ranks off a KV group's boundary, where DTensor's index
-    and reshape rules refuse or misplace the shards; the gather moves what
-    the kernel reads.  Every rank computes the whole step: its products
-    are the reference's per-partition share times the ranks that split the
-    cache."""
+class _SlotShard(NamedTuple):
+    """This rank's slots [lo, hi) of a sketched cache whose slots are split
+    over the mesh dims ``dims`` of ``device_mesh``."""
+    lo: int
+    hi: int
+    device_mesh: object
+    dims: tuple
+
+    def local_slots(self, slots) -> np.ndarray:
+        """The (m_r,) slot draw in this shard's numbering: another shard's
+        slots become the padding marker, which the fold drops, so each slot
+        still takes its updates in (pick) order."""
+        s = np.asarray(slots.cpu() if isinstance(slots, torch.Tensor) else slots, np.int64)
+        return np.where((s >= self.lo) & (s < self.hi), s - self.lo, self.hi - self.lo)
+
+    def combine(self, o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        """Σ_r e^{lse_r − m} o_r / Σ_r e^{lse_r − m}, m = max_r lse_r, over
+        the ranks that split the slots: o (…, Dh) each rank's softmax·V over
+        its own slots, lse (…) its rows' log-sum-exps (float32)."""
+        from torch.distributed import _functional_collectives as fc
+
+        m = lse
+        for d in self.dims:
+            m = fc.all_reduce(m, "max", (self.device_mesh, d))
+        w = torch.exp(lse - m)
+        num, den = o * w[..., None], w
+        for d in self.dims:
+            num = fc.all_reduce(num, "sum", (self.device_mesh, d))
+            den = fc.all_reduce(den, "sum", (self.device_mesh, d))
+        return num / den[..., None]
+
+
+def _on_sketch_cache(attend, q, k, v, cache: SketchCache, *, split_slots: bool
+                     ) -> tuple[torch.Tensor, SketchCache]:
+    """``attend(q, k, v, cache, shard) → (o, new cache)``, the sketched
+    cache's fold and attention: q (B, L, H, Dh), k/v (B, L, Hkv, Dh), o
+    (B, H, …).  Off a mesh it runs as it is (``shard`` None).  On a mesh
+    (DTensors) it runs on this rank's share: the cache's local shards,
+    split by batch rows and KV heads (and, with ``split_slots``, by slots:
+    ``shard`` a ``_SlotShard``), with q, k and v (one token's, or the
+    prompt's) gathered and cut to the same rows and heads (all G query
+    heads of each local KV head).  A split of any other dim, a size-1 mesh
+    dim aside, is gathered first.  The output is a DTensor split by batch
+    rows as the cache is, whole elsewhere; each rank keeps its own shard of
+    the new cache, placed as the old one.  Each rank's products are the
+    reference's per-partition share."""
     if not is_dtensor(cache.k_sum):
-        return attend(q, k, v, cache)
-    from torch.distributed.tensor import Replicate
+        return attend(q, k, v, cache, None)
+    from torch.distributed.tensor import Replicate, Shard
 
     dm = cache.k_sum.device_mesh
+    own = (0, 1, 2) if split_slots else (0, 1)
+    keep = [pl if isinstance(pl, Shard) and pl.dim in own
+            and all(x.placements[i] == pl for x in cache) else Replicate()
+            for i, pl in enumerate(cache.k_sum.placements)]
+    local = SketchCache(*(x.redistribute(dm, keep).to_local() for x in cache))
+    (b0, b1), (h0, h1), (s0, s1), _ = local_box(cache.k_sum.shape, dm, keep)
+    slot_dims = tuple(i for i, pl in enumerate(keep)
+                      if pl == Shard(2) and dm.mesh.shape[i] > 1)
     rep = [Replicate()] * dm.ndim
+    G = q.shape[2] // k.shape[2]
 
-    def whole(x):
-        return x.redistribute(dm, rep).to_local() if is_dtensor(x) else x
+    def mine(x, g):
+        x = x.redistribute(dm, rep).to_local() if is_dtensor(x) else x
+        return x[b0:b1, :, h0 * g:h1 * g]
 
-    o, new = attend(whole(q), whole(k), whole(v), SketchCache(*map(whole, cache)))
-    return (from_local(o, dm, rep, o.shape),
-            SketchCache(*(distribute_like(n, like) for n, like in zip(new, cache))))
+    shard = _SlotShard(s0, s1, dm, slot_dims) if slot_dims else None
+    o, new = attend(mine(q, G), mine(k, 1), mine(v, 1), local, shard)
+    # the output: (B, Hkv, G, …) split by batch rows and KV heads, the heads
+    # then gathered (a KV head split need not be a split of the H query heads)
+    B, Hkv = cache.k_sum.shape[:2]
+    pls = [pl if pl in (Shard(0), Shard(1)) else Replicate() for pl in keep]
+    o = o.reshape(o.shape[0], h1 - h0, G, *o.shape[2:])
+    o = from_local(o, dm, pls, (B, Hkv, G, *o.shape[3:]))
+    o = o.redistribute(dm, [Replicate() if pl == Shard(1) else pl for pl in pls])
+    o = o.reshape(B, Hkv * G, *o.shape[3:])
+    return o, SketchCache(*(from_local(n, dm, keep, x.shape).redistribute(dm, x.placements)
+                            for n, x in zip(new, cache)))

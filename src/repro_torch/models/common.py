@@ -3,10 +3,12 @@
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
-from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding import constrain, distribute_like, is_dtensor
 
 PARAM_DTYPE = torch.bfloat16
 
@@ -73,14 +75,74 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
     return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s], dim=-1).to(x.dtype)
 
 
-def _xent_chunk(h: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
-                W: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+class _XentChunk(torch.autograd.Function):
     """(masked cross-entropy sum, mask sum) of one chunk: h (B, c, D),
-    labels and mask (B, c), W (V, D) float32."""
-    logits = h.float() @ W.T
-    lse = torch.logsumexp(logits, dim=-1)
-    lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.sum((lse - lab) * mask), torch.sum(mask)
+    labels and mask (B, c), W (V, D) float32.  The reference's chunk body is
+    a ``jax.checkpoint`` whose backward XLA fuses into softmax − one-hot;
+    so here the forward keeps h, the labels, the mask and the (B, c)
+    log-sum-exp, not the (B, c, V) logits, and the backward recomputes the
+    logits into one buffer and turns that buffer into the gradient in place
+    (``torch.utils.checkpoint`` would rerun the forward under autograd and
+    hold the logits, the log-sum-exp's and the gather's gradients and their
+    sum at once)."""
+
+    @staticmethod
+    def forward(ctx, h, labels, mask, W):
+        logits = _split_as(h.float(), labels) @ W.T
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        ctx.save_for_backward(h, labels, mask, W, lse)
+        return torch.sum((lse - lab) * mask), torch.sum(mask)
+
+    @staticmethod
+    def backward(ctx, g, _):
+        h, labels, mask, W, lse = ctx.saved_tensors
+        hf = _split_as(h.float(), labels)
+        # G = (softmax(logits) − one-hot(labels)) · g · mask, in one buffer
+        G = hf @ W.T
+        G.sub_(lse[..., None]).exp_()
+        _minus_one_at(G, labels[..., None].long())
+        G.mul_((g * mask)[..., None])
+        dh = torch.einsum("bcv,vd->bcd", G, W).to(h.dtype)
+        dW = torch.einsum("bcv,bcd->vd", G, hf)
+        if is_dtensor(dh) and dh.placements != h.placements:
+            dh = dh.redistribute(h.device_mesh, h.placements)
+        return dh, None, None, dW
+
+
+def _split_as(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``x`` (a chunk's h) placed as the DTensor ``labels`` where the labels
+    are split over more ranks.  Under "dp_only" the batch is split over
+    every axis while h is split over the data axes alone: the chunk then
+    runs on the rank's own rows, as the reference's does, instead of every
+    "model" rank computing its data shard's logits whole.  Where the labels'
+    split refines h's this is a local slice; else (the 2 × 16 × 16 mesh:
+    h over ("pod", "data"), the labels over ("data", "model")) it moves the
+    chunk's h, (B, c, D), not its (B, c, V) logits."""
+    if not (is_dtensor(x) and is_dtensor(labels)) or labels.placements == x.placements:
+        return x
+    if _ways(labels) > _ways(x):
+        return x.redistribute(x.device_mesh, labels.placements)
+    return x
+
+
+def _ways(x: torch.Tensor) -> int:
+    """The ranks a DTensor's shards are spread over (its split mesh axes'
+    sizes multiplied)."""
+    return math.prod(n for n, pl in zip(x.device_mesh.mesh.shape, x.placements)
+                     if pl.is_shard())
+
+
+def _minus_one_at(G: torch.Tensor, idx: torch.Tensor) -> None:
+    """``G[..., idx] −= 1`` in place along the last dim (idx (…, 1)).  A
+    DTensor G (its last dim whole) is updated on this rank's shard, the
+    labels placed as G first: DTensor takes no in-place scatter."""
+    if is_dtensor(G):
+        assert all(getattr(pl, "dim", None) != G.ndim - 1 for pl in G.placements)
+        idx = (idx.redistribute(G.device_mesh, G.placements) if is_dtensor(idx)
+               else distribute_like(idx, G))
+        G, idx = G.to_local(), idx.to_local()
+    G.scatter_add_(-1, idx, torch.full(idx.shape, -1.0, dtype=G.dtype, device=G.device))
 
 
 def chunked_xent(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor,
@@ -93,9 +155,9 @@ def chunked_xent(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor,
     (loss, count).
 
     The sequence is cut into ``max(S // chunk, 1)`` equal chunks (a length
-    they do not divide raises, as the reference's reshape does), each run
-    under ``torch.utils.checkpoint`` so that its (B, c, V) logits are
-    recomputed in the backward instead of kept; the output embedding is cast
+    they do not divide raises, as the reference's reshape does), each one
+    ``_XentChunk``, so that its (B, c, V) logits are recomputed in the
+    backward into one buffer instead of kept; the output embedding is cast
     to float32 once, outside the chunks (and, under a mesh, gathered whole
     once there, so that no chunk re-gathers it)."""
     B, S, D = h.shape
@@ -106,8 +168,6 @@ def chunked_xent(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor,
     hc = h.reshape(B, nchunk, chunk, D)
     lc = labels.reshape(B, nchunk, chunk)
     mc = mask.reshape(B, nchunk, chunk)
-    # late import: the models and sharding import each other's modules
-    from repro_torch.sharding import constrain
     emb_f = constrain(emb_out.float(), None, None)
     # DTensor may leave h a partial sum over the model axis (the output
     # projections contract a TP-sharded dim); the label gather needs it whole
@@ -115,8 +175,7 @@ def chunked_xent(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor,
     loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     count = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(nchunk):
-        ls, ct = checkpoint(_xent_chunk, hc[:, i], lc[:, i], mc[:, i], emb_f,
-                            use_reentrant=False)
+        ls, ct = _XentChunk.apply(hc[:, i], lc[:, i], mc[:, i], emb_f)
         loss_sum = loss_sum + ls
         count = count + ct
     return loss_sum / torch.clamp(count, min=1.0), count

@@ -339,6 +339,8 @@ class SLSTMScan(torch.autograd.Function):
             d = torch.addcmul(torch.addcmul(gh[:, :, None] * Ph[t], gc[:, :, None], Pc[t]),
                               gn[:, :, None], Pn[t]).view(H, B, D4)
             ds.append(d)
+            if t == 0:
+                break                       # the zero initial state takes no gradient
             gh_in = torch.bmm(d, RT)
             gc_in = gc * f_p[t]
             gn_in = gn * sw_fp[t]

@@ -392,6 +392,45 @@ def test_cuda_landmark_attention_matches_plain(cuda_device, P, S, L, Dh, Dv, dty
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,S,L,Dh,Dv", [(32, 4, 1024, 128, 128), (128, 1, 1024, 112, 112),
+                                         (512, 2, 1024, 256, 256), (3, 8, 517, 256, 200),
+                                         (2, 2, 7, 64, 5), (5, 3, 1000, 64, 200)])
+def test_cuda_landmark_decode_log_sum_exp(cuda_device, P, S, L, Dh, Dv, dtype):
+    """The decode sweep's log-sum-exp output (``lse=True``, one launch), at
+    shapes of one split and of many (the last block's combine), two value
+    chunks, element loads and a row whose every landmark is masked: against
+    the plain version's at 1e-5 of its largest, the output bit for bit the
+    launch's without it, through the kernel and through ``landmark_attend``
+    (which pads L).  The
+    tensor-core sweep (S > 8) refuses it."""
+    g = torch.Generator().manual_seed(P + S + L + 1)
+    q, kt = _randn(g, (P, S, Dh), cuda_device, dtype), _randn(g, (P, L, Dh), cuda_device, dtype)
+    M = _randn(g, (P, L, Dv), cuda_device, dtype)
+    bias = torch.log(torch.rand((P, L), generator=g) * 3 + 0.1)
+    bias[:, ::3] = -1e30
+    bias[0] = -1e30
+    bias = bias.to(cuda_device)
+    out, lse = LK.landmark_attention(q, kt, M, bias, lse=True)
+    plain, plain_lse = LR.landmark_attention_ref(q, kt, M, bias, lse=True)
+    assert lse.shape == (P, S) and lse.dtype == torch.float32
+    # the masked row's lse is −1e30 + log L: held apart, so that it does not
+    # set the other rows' scale
+    live = plain_lse > -1e29
+    _close(lse[live], plain_lse[live], 1e-5)
+    assert (lse[~live] <= -1e29).all() and (~live).any()
+    assert torch.equal(out, LK.landmark_attention(q, kt, M, bias))
+    # the router pads L to a multiple of 8 with −1e30 (another key partition,
+    # and the masked row's weights spread over the padding too)
+    via = LO.landmark_attend(q, kt, M, bias, lse=True)
+    assert torch.equal(via[0], LO.landmark_attend(q, kt, M, bias))
+    _close(via[1][live], plain_lse[live], 1e-5)
+    with pytest.raises(ValueError, match="decode sweep"):
+        LK.landmark_attention(_randn(g, (P, 9, Dh), cuda_device, dtype), kt, M, bias, lse=True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_landmark_decode_at_head_dim_112(cuda_device, dtype):
     """zamba2-7b's shared attention (32 heads of 112, no GQA) is the first
     serving path whose decode sweep runs at a head dim other than 128: its

@@ -17,16 +17,18 @@ reference's ``repro.launch``, on the CPU.
   ``with_sharding_constraint`` refuses).
 - Reduced stablelm-3b and moonshot-v1-16b-a3b cells on a (2, 2) ``"fake"``
   group: the per-rank FLOPs of prefill and the exact decode equal the
-  reference's per-partition FLOPs exactly.  Those of a training step and of
-  a sketched decode step equal the reference's plus a gap counted from the
-  cell (``_counted_gap``): in training, the loss chunks' forward logits
-  (the compiled reference merges them with their recompute in the
-  backward; the eager port computes both) less one QKᵀ product a chunk of
-  every attention block (the reference's chunk body is a ``jax.checkpoint``
-  and recomputes it in the backward; the port's keeps its scores); in the
-  sketched decode, the attention's two products on the whole cache, which
-  every rank computes after the gather, less the reference's share (the
-  batch over data, the slots over model).
+  reference's per-partition FLOPs exactly, and so do those of a sketched
+  decode step (each rank attends over its own slots and batch rows, the
+  partials combined by their log-sum-exps).  Those of a training step equal
+  the reference's plus the loss chunks' forward logits (``_counted_gap``:
+  the compiled reference merges them with their recompute in the backward;
+  the eager port computes both); the attention chunks recompute their
+  scores in the backward, as the reference's ``jax.checkpoint`` does.  So
+  do those of a reduced xlstm-125m training step, whose "dp_only" policy
+  splits the batch over both axes: each rank's loss covers its own rows.
+- A training step at gemma3-12b's vocabulary on the (2, 2) group holds,
+  above its arguments, less than one chunk's float32 logits for the whole
+  microbatch: the loss backward works on the rank's share.
 - On one rank the dry run is the real program: a reduced float32 training
   step and a sketched decode step recorded for real (``trace.record``)
   and as a dry run on a one-rank ``"fake"`` group give the same non-view
@@ -42,6 +44,7 @@ Each test that starts the fake group destroys it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import io
 import json
@@ -79,6 +82,9 @@ REDUCED = {"train": ShapeSpec("train_4k", 64, 8, "train"),
            "decode": ShapeSpec("decode_32k", 64, 4, "decode"),
            "sketched": ShapeSpec("long_500k", 64, 4, "decode")}
 REDUCED_ARCHS = ("stablelm-3b", "moonshot-v1-16b-a3b")
+# every one of those cells, and a training step under "dp_only" (xlstm-125m:
+# the batch split over both axes, so each rank's loss is its own rows')
+REDUCED_CELLS = [(a, k) for a in REDUCED_ARCHS for k in REDUCED] + [("xlstm-125m", "train")]
 
 
 @contextlib.contextmanager
@@ -165,20 +171,22 @@ with contextlib.redirect_stdout(buf):
 out["list"] = buf.getvalue().splitlines()
 mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2,
                      devices=jax.devices()[:4])
-for name in json.loads(sys.argv[1]):
+shapes = json.loads(sys.argv[2])
+for name, key in json.loads(sys.argv[1]):
     cfg = reduced(ARCHS[name])
-    for key, spec in json.loads(sys.argv[2]).items():
-        shape = ShapeSpec(*spec)
-        if shape.kind == "train":
-            cell = RS.train_cell(cfg, shape, mesh, TrainConfig(n_micro=4))
-        elif shape.kind == "prefill":
-            cell = RS.prefill_cell(cfg, shape, mesh)
-        else:
-            cell = RS.decode_cell(cfg, shape, mesh)
-        with mesh:
-            compiled = jax.jit(cell.fn, in_shardings=cell.in_shardings).lower(
-                *cell.args).compile()
-        out["cells"][f"{name}/{key}"] = analyze(compiled).flops
+    shape = ShapeSpec(*shapes[key])
+    if shape.kind == "train":
+        # one microbatch under "dp_only", as the dry run's cells
+        n_micro = 1 if cfg.sharding_policy == "dp_only" else 4
+        cell = RS.train_cell(cfg, shape, mesh, TrainConfig(n_micro=n_micro))
+    elif shape.kind == "prefill":
+        cell = RS.prefill_cell(cfg, shape, mesh)
+    else:
+        cell = RS.decode_cell(cfg, shape, mesh)
+    with mesh:
+        compiled = jax.jit(cell.fn, in_shardings=cell.in_shardings).lower(
+            *cell.args).compile()
+    out["cells"][f"{name}/{key}"] = analyze(compiled).flops
 print("RESULT " + json.dumps(out))
 '''
 
@@ -190,7 +198,7 @@ def reference():
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
     shapes = {k: (s.name, s.seq_len, s.global_batch, s.kind) for k, s in REDUCED.items()}
-    p = subprocess.run([sys.executable, "-c", _REFERENCE, json.dumps(REDUCED_ARCHS),
+    p = subprocess.run([sys.executable, "-c", _REFERENCE, json.dumps(REDUCED_CELLS),
                         json.dumps(shapes)], env=env, capture_output=True, text=True,
                        timeout=600)
     assert p.returncode == 0, p.stderr[-4000:]
@@ -214,29 +222,24 @@ def test_list_prints_the_reference_lines(reference):
 def _reduced_cell(name: str, key: str, mesh):
     cfg, shape = reduced(ARCHS[name]), REDUCED[key]
     if shape.kind == "train":
-        return TS.train_cell(cfg, shape, mesh, TrainConfig(n_micro=4), device="cpu")
+        n_micro = 1 if cfg.sharding_policy == "dp_only" else 4
+        return TS.train_cell(cfg, shape, mesh, TrainConfig(n_micro=n_micro), device="cpu")
     if shape.kind == "prefill":
         return TS.prefill_cell(cfg, shape, mesh, device="cpu")
     return TS.decode_cell(cfg, shape, mesh, device="cpu")
 
 
-def _counted_gap(rec, cfg, key: str, dp: int, M: int) -> float:
+def _counted_gap(rec, cfg, key: str) -> float:
     """The port's per-rank FLOPs less the reference's per-partition FLOPs,
-    counted from the reduced cell ``key`` on a (dp, M) mesh (see the module
-    docstring).  Zero for prefill and the exact decode."""
-    shape = REDUCED[key]
-    B, S, H, Dh = shape.global_batch, shape.seq_len, cfg.n_heads, cfg.head_dim
-    n_attn = cfg.n_superblocks * sum(k.startswith("attn") for k in cfg.pattern)
-    if key == "train":
-        # each loss chunk's logits twice (the forward, its recompute), the
-        # head's (…, V) products; one QKᵀ a chunk and block, S·S a row and head
-        logits = sum(ev.flops for ev in rec.ops
-                     if ev.name == "mm" and ev.result.endswith(f",{cfg.vocab_size}]"))
-        return logits / 2 - 2 * (B // dp) * (H // M) * S * S * Dh * n_attn
-    if key == "sketched":
-        whole = 2 * (2 * B * H * cfg.sketch_attn.d_slots * Dh) * n_attn
-        return whole - whole / (dp * M)
-    return 0.0
+    counted from the reduced cell ``key`` (see the module docstring): in
+    training the loss chunks' forward logits, zero elsewhere."""
+    if key != "train":
+        return 0.0
+    # each loss chunk's logits twice (the forward, its recompute), the
+    # head's (…, V) products
+    logits = sum(ev.flops for ev in rec.ops
+                 if ev.name == "mm" and ev.result.endswith(f",{cfg.vocab_size}]"))
+    return logits / 2
 
 
 def test_reduced_cells_per_rank_flops_match_the_reference(reference):
@@ -245,19 +248,37 @@ def test_reduced_cells_per_rank_flops_match_the_reference(reference):
     got = {}
     with fake_group(4):
         mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
-        for name in REDUCED_ARCHS:
-            for key in REDUCED:
-                cell = _reduced_cell(name, key, mesh)
-                with mesh:
-                    rec = record_rank(cell.fn, *cell.args, fake_mode=cell.fake_mode,
-                                      device="cpu")
-                got[f"{name}/{key}"] = (analyze(rec).flops,
-                                        _counted_gap(rec, reduced(ARCHS[name]), key, 2, 2))
+        for name, key in REDUCED_CELLS:
+            cell = _reduced_cell(name, key, mesh)
+            with mesh:
+                rec = record_rank(cell.fn, *cell.args, fake_mode=cell.fake_mode,
+                                  device="cpu")
+            got[f"{name}/{key}"] = (analyze(rec).flops,
+                                    _counted_gap(rec, reduced(ARCHS[name]), key))
     assert set(got) == set(reference["cells"])
     for cell, want in reference["cells"].items():
         flops, gap = got[cell]
         assert flops == want + gap, (cell, flops, want, gap)
-        assert (gap > 0) == cell.endswith(("/train", "/sketched")), (cell, gap)
+        assert (gap > 0) == cell.endswith("/train"), (cell, gap)
+
+
+def test_training_on_a_mesh_holds_a_rank_share_of_the_loss_logits():
+    from repro_torch.sharding import make_mesh
+
+    # gemma3-12b's vocabulary (the logits dominate every other buffer)
+    cfg = dataclasses.replace(reduced(ARCHS["gemma3-12b"]), vocab_size=262144)
+    B, S, n_micro = 8, 512, 2
+    with fake_group(4):
+        mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+        cell = TS.train_cell(cfg, ShapeSpec("train_4k", S, B, "train"), mesh,
+                             TrainConfig(n_micro=n_micro), device="cpu")
+        with mesh:
+            rec = record_rank(cell.fn, *cell.args, fake_mode=cell.fake_mode, device="cpu")
+    # one chunk's float32 logits at a data rank's share of a microbatch; the
+    # whole microbatch's are twice that
+    buf = B // n_micro // 2 * S * cfg.vocab_size * 4
+    rise = rec.peak_bytes - rec.arg_bytes
+    assert rise < 2 * buf, (rise / buf, rec.peak_by_op)
 
 
 def _non_view(rec) -> list:
@@ -265,8 +286,6 @@ def _non_view(rec) -> list:
 
 
 def test_one_rank_dry_run_is_the_real_program():
-    import dataclasses
-
     from repro_torch.core.sketched_attention import decode_slot_table
     from repro_torch.models.model import init_cache, init_params, prefill_with_cache
     from repro_torch.sharding import make_mesh

@@ -1,5 +1,6 @@
 """The port stands alone and never falls back behind the caller's back:
-no JAX or reference import in src/repro_torch/ or chip_smoke.py, constructors
+no JAX, reference or ``benchmarks`` import in src/repro_torch/,
+chip_smoke.py or the example twins (examples/*_torch.py), constructors
 that refuse a missing card instead of landing on the CPU, and kernel
 wrappers that choose by device alone, with no exception handling that could
 turn a failed launch into a plain-version result."""
@@ -17,7 +18,8 @@ from repro_torch.kernels.landmark_attention import kernel as LK  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_modules(path: Path):
@@ -32,7 +34,7 @@ def _imported_modules(path: Path):
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib"), f"{path} imports {mod}"
+        assert top not in ("jax", "jaxlib", "benchmarks"), f"{path} imports {mod}"
         assert not top.startswith("repro") or top == "repro_torch", \
             f"{path} imports {mod}"
 

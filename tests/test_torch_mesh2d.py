@@ -26,10 +26,14 @@ They write whole (gathered) results and digests; this process compares.
   moonshot-v1-16b-a3b, float32, exact and sketched caches): a
   ``prefill_with_cache`` of the batch and one ``decode_step``, the cache
   placed by ``cache_shardings`` (the batch on data, the positions or the
-  slots on model), against one process: both steps' logits at 1e-5 of
-  their largest magnitude, each cache leaf at 1e-6 of its largest entry
-  (measured: logits within 7e-7, caches bit for bit); the cache leaves keep
-  their placements.
+  slots on model), and the sketched cache also split by batch rows alone,
+  by slots alone over both axes (each rank's decode attends over its own
+  slots, the partials combined by their log-sum-exps) and by KV heads
+  alone (unevenly where there are 3), against one process: both steps'
+  logits at 1e-5 of their largest magnitude, each cache leaf at 1e-6 of its
+  largest entry, and bit for bit in the three extra layouts (measured:
+  logits within 7e-7, caches bit for bit); the cache leaves keep their
+  placements.
 - A wide, shallow stablelm-3b (d_model 512) on a batch of 2 × 4 tokens:
   DTensor moves the activations rather than gather the FSDP weights, so
   the products before the aligned reshapes are partial sums over "data";
@@ -90,7 +94,16 @@ BATCH, SEQ = 4, 16
 # serving: the prompt is SEQ tokens, the exact cache holds SERVE_LEN positions
 # (split over the model axis), and one token is decoded at position SEQ
 SERVE_ARCHS = ("stablelm-3b", "stablelm-3b-3kv", "moonshot-v1-16b-a3b")
-SERVE_CACHES = ("exact", "sketched")
+# the sketched cache's layouts beyond cache_shardings' (the batch on data,
+# the slots on model): split by batch rows alone, by slots alone over both
+# axes (long_500k's batch of 1: each rank attends over its slots and the
+# ranks combine their partials), by KV heads alone (3 KV heads split
+# unevenly); the spec of a (B, Hkv, d_slots, Dh) leaf (the mass its first
+# three entries)
+SKETCH_LAYOUTS = {"sketched-batch": (("data", "model"), None, None, None),
+                  "sketched-slots": (None, None, ("data", "model"), None),
+                  "sketched-heads": (None, "model", None, None)}
+SERVE_CACHES = ("exact", "sketched", *SKETCH_LAYOUTS)
 SERVE_LEN = 32
 # wide weights and a tiny batch, so that DTensor moves activations, not weights
 WIDE = reduced(ARCHS["stablelm-3b"]).scaled(d_model=512, n_heads=8, n_kv_heads=8,
@@ -189,7 +202,7 @@ def _serve(params, cfg, tokens, nxt, cache_kind: str, place=lambda c: c) -> dict
     from repro_torch.core.sketched_attention import decode_slot_table, decode_slots
     from repro_torch.models.model import decode_step, init_cache, prefill_with_cache
 
-    sketch = cache_kind == "sketched"
+    sketch = cache_kind.startswith("sketched")
     sa = cfg.sketch_attn
     cache = place(init_cache(cfg, BATCH, SERVE_LEN, dtype=torch.float32, use_sketch=sketch,
                              device="cpu"))
@@ -300,8 +313,10 @@ def _worker(rank: str, store: str, base: str) -> int:
             tok, nxt = (sh.distribute(t, mesh, sh.batch_spec(mesh, BATCH))
                         for t in (tok, lab[:, -1].contiguous()))
 
-            def place(cache):
+            def place(cache, layout=None):
                 def one(x):
+                    if layout is not None:
+                        return sh.distribute(x, mesh, layout[:x.ndim])
                     stacked = torch.empty((cfg.n_superblocks, *x.shape), device="meta")
                     return sh.distribute(x, mesh, tuple(sh.cache_shardings(
                         mesh, stacked, BATCH, cfg.sharding_policy)[1:]))
@@ -309,8 +324,10 @@ def _worker(rank: str, store: str, base: str) -> int:
                 return tree_map(one, cache)
 
             for kind in SERVE_CACHES:
+                layout = SKETCH_LAYOUTS.get(kind)
                 with mesh:
-                    vals = _serve(params, cfg, tok, nxt, kind, place)
+                    vals = _serve(params, cfg, tok, nxt, kind,
+                                  lambda c, layout=layout: place(c, layout))
                 cache_pl = [str(v.placements) for k, v in vals.items() if k.startswith("cache")]
                 report[f"{arch}_{kind}_placements"] = cache_pl
                 for k, v in vals.items():
@@ -575,9 +592,17 @@ def test_serving_on_the_mesh_equals_one_process(ranks, arch, kind):
         tol = 1e-6 if k.startswith("cache") else 1e-5
         scale = max(float(np.abs(w).max()), 1e-30)
         assert _max_err(got[f"{arch}_{kind}_{k}"], w) <= tol * scale, (k,)
+    # the sketched folds add each slot's updates in one order on any layout
+    if kind in SKETCH_LAYOUTS:
+        assert all(np.array_equal(got[f"{arch}_{kind}_{k}"], w.numpy())
+                   for k, w in want.items() if k.startswith("cache")), kind
     # every rank keeps its own shard of the cache, placed as cache_shardings
-    # placed it: the batch on data, the positions (exact) or slots on model
-    split = "(Shard(dim=0), Shard(dim=1))" if kind == "exact" else "(Shard(dim=0), Shard(dim=2))"
+    # placed it (the batch on data, the positions (exact) or slots on model)
+    # or as the layout asked
+    split = {"exact": "(Shard(dim=0), Shard(dim=1))", "sketched": "(Shard(dim=0), Shard(dim=2))",
+             "sketched-batch": "(Shard(dim=0), Shard(dim=0))",
+             "sketched-slots": "(Shard(dim=2), Shard(dim=2))",
+             "sketched-heads": "(Replicate(), Shard(dim=1))"}[kind]
     for r in reports:
         assert r[f"{arch}_{kind}_placements"] == [split] * (2 if kind == "exact" else 3)
 
