@@ -158,7 +158,11 @@
         nothing-dropped MoE layer (capacity factor E/K) against
         ``moe_forward_local``; one bfloat16 AdamW step of moonshot's sharded
         state: its ms, each rank's state shards and peak memory against the
-        reckoned quarter of 14 B a parameter, aux and dropped.
+        reckoned quarter of 14 B a parameter, aux and dropped; then two
+        reduced checks against rank 0's one process (``mesh2d_reduced``):
+        a "dp_only" xlstm-125m step in 4 microbatches, each placed as the
+        batch, and a sketched prefill into a cache split on its slots over
+        both axes (cache bit for bit), each with its seconds.
    Then path (t), the dry run (``dryrun_path``: ``repro_torch.launch.specs``,
    ``.dryrun``, ``.analysis`` and the rank recorder), once, its launch
    counts from 0 (only landmark_attention may launch, in (t1)'s real
@@ -1658,6 +1662,96 @@ def is_expert(name: str) -> bool:
     return "/ffn/" in f"/{name}/" and name.rsplit("/", 1)[-1] in ("wi_gate", "wi_up", "wo")
 
 
+# (s2)'s reduced checks against one process (rank 0's): a "dp_only" step of
+# reduced xlstm-125m (float32 state) on 16 × 32 tokens in 4 microbatches,
+# each placed as the batch (the loss at 1e-6 relative, the gradient norm at
+# 1e-5 relative, AdamW's first moment at 1e-5 of each leaf's largest
+# entry), and a sketched prefill of reduced stablelm-3b (float32, 2 × 64
+# tokens) into a cache split on its slots over both axes (the logits at
+# 1e-5 of their largest entry, the cache bit for bit)
+S_MICRO_ARCH, S_MICRO, S_MICRO_BATCH_SEQ = "xlstm-125m", 4, (16, 32)
+S_PREFILL_ARCH, S_PREFILL_BATCH_SEQ = "stablelm-3b", (2, 64)
+
+
+def mesh2d_reduced(torch, mesh, rank: int) -> dict:
+    """(s2)'s reduced checks on this rank's share of the (data 2, model 2)
+    mesh, with rank 0's one-process results and errors: {"micro_s",
+    "prefill_s", "digest" (the gathered results', equal on every rank), and
+    on rank 0 "micro" and "prefill"}."""
+    import hashlib
+
+    from repro_torch import sharding as sh
+    from repro_torch._util import tree_leaves, tree_map
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.sketched_attention import decode_slot_table
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.models.model import init_cache, init_params, prefill_with_cache
+    from repro_torch.train import step as TS
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    def batch(cfg, b, n):
+        return global_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=n,
+                                       global_batch=b), 0, device="cpu")
+
+    res, whole = {}, []
+    # a "dp_only" step in S_MICRO microbatches
+    cfg = reduced(get_config(S_MICRO_ARCH))
+    tc = TS.TrainConfig(n_micro=S_MICRO)
+    tok, lab = batch(cfg, *S_MICRO_BATCH_SEQ)
+
+    def step(mesh_=None):
+        state = TS.init_train_state(init_params(0, cfg, device="cpu", dtype=torch.float32), tc)
+        if mesh_ is not None:
+            state = TS.place_train_state(state, mesh_, cfg.sharding_policy)
+        state, mets = TS.train_step(state, tok, lab, 0, cfg, tc, mesh=mesh_)
+        return ([sh.full(mets[k]) for k in ("loss", "grad_norm")],
+                [sh.full(m) for m in tree_leaves(state.opt.m)])
+
+    t0 = time.perf_counter()
+    got = step(mesh)
+    res["micro_s"] = time.perf_counter() - t0
+    whole += got[0] + got[1]
+    if rank == 0:
+        want = step()
+        res["micro"] = dict(loss_rel=rel(got[0][0], want[0][0]),
+                            norm_rel=rel(got[0][1], want[0][1]),
+                            m_err=max(rel(a, b) for a, b in zip(got[1], want[1])))
+    # a sketched prefill into a cache split on its slots over both axes
+    cfg = reduced(get_config(S_PREFILL_ARCH))
+    B, L = S_PREFILL_BATCH_SEQ
+    sa = cfg.sketch_attn
+    table = decode_slot_table(0, L, sa.d_slots, sa.m_r)
+    tok, _ = batch(cfg, B, L)
+    slots = (None, None, ("data", "model"), None)
+
+    def prefill(mesh_=None):
+        params = init_params(0, cfg, device="cpu", dtype=torch.float32)
+        cache = init_cache(cfg, B, L, dtype=torch.float32, use_sketch=True, device="cpu")
+        t = tok
+        if mesh_ is not None:
+            params = sh.shard_tree(params, mesh_, sh.params_shardings(mesh_, params))
+            cache = tree_map(lambda x: sh.distribute(x, mesh_, slots[:x.ndim]), cache)
+            t = sh.distribute(tok, mesh_, sh.batch_spec(mesh_, B))
+        with torch.no_grad(), (mesh_ if mesh_ is not None else contextlib.nullcontext()):
+            logits, cache = prefill_with_cache(params, t, cfg, cache, slot_table=table)
+        return sh.full(logits), [sh.full(x) for x in tree_leaves(cache)]
+
+    t0 = time.perf_counter()
+    got = prefill(mesh)
+    res["prefill_s"] = time.perf_counter() - t0
+    whole += [got[0], *got[1]]
+    if rank == 0:
+        want = prefill()
+        res["prefill"] = dict(logit_err=rel(got[0], want[0]),
+                              cache_bitwise=all(torch.equal(a, b)
+                                                for a, b in zip(got[1], want[1])))
+    res["digest"] = hashlib.sha1(b"".join(x.detach().contiguous().numpy().tobytes()
+                                          for x in whole)).hexdigest()
+    return res
+
+
 def mesh2d_configs(batch_seq=None):
     """(moonshot cut to S_SB superblocks, stablelm-3b cut to S_SB layers,
     (batch, seq)): full widths."""
@@ -1841,6 +1935,8 @@ def mesh2d_rank(rank: int, size: int, store: str, out: str) -> int:
             aux=[float(sh.full(m.aux_loss)) for m, _ in mets],
             dropped=[float(sh.full(m.dropped_fraction)) for m, _ in mets],
             digest=digest(sh.full(state.params["embed"]).float().cpu()))
+        del state
+        res["reduced"] = mesh2d_reduced(torch, mesh, rank)
     finally:
         dist.destroy_process_group()
     Path(out).write_text(json.dumps(res))
@@ -2068,6 +2164,24 @@ def mesh2d_path(torch, dev, smi: str, *, batch_seq=S_CPU_BATCH_SEQ,
           and all(r["opt_placed"] for r in reps),
           "(s2) the AdamW state placed by opt_shardings; the bfloat16 step's parameters "
           "bitwise equal on the ranks, its loss finite")
+    red = [r["reduced"] for r in reps]
+    mi, pf = red[0]["micro"], red[0]["prefill"]
+    print(f"  (s2) reduced checks against one process: a \"dp_only\" {S_MICRO_ARCH} step of "
+          f"{S_MICRO_BATCH_SEQ[0]}×{S_MICRO_BATCH_SEQ[1]} tokens in {S_MICRO} microbatches "
+          f"{[round(r['micro_s'], 2) for r in red]} s by rank; a sketched {S_PREFILL_ARCH} "
+          f"prefill of {S_PREFILL_BATCH_SEQ[0]}×{S_PREFILL_BATCH_SEQ[1]} tokens into a cache "
+          f"split on its slots over both axes {[round(r['prefill_s'], 2) for r in red]} s by "
+          f"rank")
+    check(mi["loss_rel"] <= 1e-6 and mi["norm_rel"] <= 1e-5 and mi["m_err"] <= 1e-5,
+          f"(s2) the \"dp_only\" step in {S_MICRO} microbatches against one process: loss "
+          f"rel {mi['loss_rel']:.2e} (tol 1e-6), gradient norm rel {mi['norm_rel']:.2e} (tol "
+          f"1e-5), AdamW's first moment {mi['m_err']:.2e} of a leaf's largest (tol 1e-5)")
+    check(pf["logit_err"] <= 1e-5 and pf["cache_bitwise"],
+          f"(s2) the slot-split sketched prefill against one process: logits "
+          f"{pf['logit_err']:.2e} of their largest (tol 1e-5), cache "
+          f"{'bit for bit' if pf['cache_bitwise'] else 'NOT bit for bit'}")
+    check(len({r["digest"] for r in red}) == 1,
+          "(s2) the reduced checks' results bitwise equal on the ranks")
     print(f"  (s) {time.perf_counter() - t_all:.1f} s")
 
 

@@ -131,7 +131,8 @@ class Recording:
     (``peak_bytes``, the call's arguments counted: ``arg_bytes``) and what
     held them then: bytes by the op that made each storage ("arguments"
     for the call's own), taken when the peak last grew by 1%
-    (``peak_by_op``)."""
+    (``peak_by_op``), and then each live storage as (bytes, op, shape,
+    dtype) of the first tensor held on it (``peak_storages``)."""
 
     ops: list = dataclasses.field(default_factory=list)
     routes: list = dataclasses.field(default_factory=list)
@@ -140,6 +141,7 @@ class Recording:
     peak_bytes: int = 0
     arg_bytes: int = 0
     peak_by_op: dict = dataclasses.field(default_factory=dict)
+    peak_storages: list = dataclasses.field(default_factory=list)
 
 
 class _Recorder(TorchDispatchMode):
@@ -224,7 +226,7 @@ class _RankRecorder(TorchDispatchMode):
 
         self.rec, self.fake_mode, self.fake = rec, fake_mode, FakeTensor
         self.device_type = torch.device(device).type
-        self.live: dict[int, tuple[int, str]] = {}
+        self.live: dict[int, tuple] = {}
         self.held = self.shown = 0
 
     def hold(self, t: torch.Tensor, origin: str = "arguments") -> None:
@@ -237,16 +239,17 @@ class _RankRecorder(TorchDispatchMode):
             return
         st = t.untyped_storage()
         size = -(-st.nbytes() // ALLOC_GRANULE) * ALLOC_GRANULE
-        self.live[key] = (size, origin)
+        self.live[key] = (size, origin, tuple(t.shape), t.dtype)
         self.held += size
         if self.held > self.rec.peak_bytes:
             self.rec.peak_bytes = self.held
             if self.held > 1.01 * self.shown:
                 self.shown = self.held
                 by: dict[str, int] = {}
-                for b, op in self.live.values():
+                for b, op, _, _ in self.live.values():
                     by[op] = by.get(op, 0) + b
                 self.rec.peak_by_op = by
+                self.rec.peak_storages = list(self.live.values())
         weakref.finalize(st, self._release, key)
 
     def _release(self, key: int) -> None:

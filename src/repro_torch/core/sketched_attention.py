@@ -231,7 +231,7 @@ def prefill_sketch_cache(cache: SketchCache, k_seq: torch.Tensor,
 
 def sketch_prefill_attend(q_seq: torch.Tensor, k_seq: torch.Tensor,
                           v_seq: torch.Tensor, cache: SketchCache, slot_table, *,
-                          chunk: int = 128) -> tuple[torch.Tensor, SketchCache]:
+                          chunk: int = 128, shard=None) -> tuple[torch.Tensor, SketchCache]:
     """Decode-semantics attention for all L prefill positions, chunked.
 
     q_seq: (B, H, L, Dh); k_seq, v_seq: (B, Hkv, L, Dh); slot_table (L, m_r).
@@ -246,12 +246,21 @@ def sketch_prefill_attend(q_seq: torch.Tensor, k_seq: torch.Tensor,
 
     with p̃ = softmax / mass.  The carry advances through the same fold as
     ``prefill_sketch_cache``, so the returned cache is bitwise the
-    sequential loop's.  Returns (out (B, H, L, Dh) in q's dtype, cache)."""
+    sequential loop's.  Returns (out (B, H, L, Dh) in q's dtype, cache).
+
+    ``shard`` (a mesh's slot shard, as the decode's): ``cache`` holds this
+    rank's slots, ``shard.local_slots`` renumbers the table to them (another
+    rank's slots become the padding marker, which the fold drops), every
+    slot-wide product runs on them alone, and ``shard.combine`` joins the
+    ranks' softmax partials (both terms of out are sums over slots) by
+    their rows' log-sum-exps, in float32."""
     B, H, L, Dh = q_seq.shape
     Hkv = k_seq.shape[1]
     G = H // Hkv
     d_slots = cache.k_sum.shape[2]
     table = _host_table(slot_table)
+    if shard is not None:
+        table = shard.local_slots(table)
     m_r = table.shape[-1]
     dev = q_seq.device
     f32 = torch.float32
@@ -283,6 +292,8 @@ def sketch_prefill_attend(q_seq: torch.Tensor, k_seq: torch.Tensor,
         pw = torch.where(tril, torch.einsum("bhgtj,sj->bhgts", pn, w), 0.0)
         o = (torch.einsum("bhgtj,bhjd->bhgtd", pn, cache.v_sum.float())
              + torch.einsum("bhgts,bhsd->bhgtd", pw, vf))
+        if shard is not None:
+            o = shard.combine(o, torch.logsumexp(logits, dim=-1))
         outs.append(o.reshape(B, H, cm, Dh))
         cache = prefill_sketch_cache(cache, kc, vc, table[t0:t1])
     return torch.cat(outs, dim=2).to(q_seq.dtype), cache

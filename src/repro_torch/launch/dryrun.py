@@ -74,6 +74,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, tc: TrainConfig | N
         "ops": len(recording.ops), "kernel_dispatches": len(recording.routes),
         "superblocks": superblocks or ARCHS[arch].n_superblocks,
         "peak_by_op": dict(sorted(recording.peak_by_op.items(), key=lambda kv: -kv[1])[:6]),
+        # the largest storages then: GB, the op that made it, shape, dtype
+        "peak_storages": [[round(b / 1e9, 3), op, list(shape), str(dt).split(".")[-1]]
+                          for b, op, shape, dt in sorted(recording.peak_storages,
+                                                         key=lambda s: -s[0])[:8]],
     }
     if verbose:
         print(f"[dryrun] {cell.label} mesh={rec['mesh']} device={device} "
@@ -90,6 +94,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, tc: TrainConfig | N
         print(f"  collectives: {roof.coll_detail['count']}")
         print(f"  at the peak, GB by the op that made each storage: "
               f"{ {k: round(v / 1e9, 3) for k, v in rec['peak_by_op'].items()} }")
+        print(f"  the largest storages then (GB, op, shape, dtype): {rec['peak_storages']}")
     return rec
 
 

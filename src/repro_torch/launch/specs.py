@@ -292,6 +292,8 @@ def make_cell(arch: str, shape_name: str, mesh, *, tc: TrainConfig | None = None
         # is the dominant training temp; microbatching divides it by n_micro.
         # dp_only archs keep n_micro=1: their global batch exactly covers the
         # chips, and the models are small enough not to need the carry split.
+        # (With more, train_step places each microbatch as the batch, over
+        # the axes that split its rows, so each rank's loss is its own rows'.)
         if tc is None:
             n_micro = 1 if cfg.sharding_policy == "dp_only" else 4
             tc = TrainConfig(n_micro=n_micro)

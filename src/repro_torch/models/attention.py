@@ -311,17 +311,18 @@ def attn_prefill_sketched(p, h: torch.Tensor, cache: SketchCache, cfg: ModelConf
     evolving-cache attention (position t sees the cache after its own
     token's update — the semantics of L sequential decode steps).
     slot_table: (L, m_r).  Returns (out (B, L, D), cache).  On a mesh each
-    rank folds and attends for its own batch rows and KV heads; slots split
-    over ranks are gathered (``_on_sketch_cache``)."""
+    rank folds and attends for its own batch rows, KV heads and slots, the
+    slot partials combined by their log-sum-exps (``_on_sketch_cache``), as
+    the decode's."""
     B, L, _ = h.shape
     H, Dh = cfg.n_heads, cfg.head_dim
     q, k, v = _qkv(p, h, cfg, sin, cos)
 
     def attend(q, k, v, cache, shard):
         return sketch_prefill_attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                     cache, slot_table, chunk=chunk)
+                                     cache, slot_table, chunk=chunk, shard=shard)
 
-    o, cache = _on_sketch_cache(attend, q, k, v, cache, split_slots=False)
+    o, cache = _on_sketch_cache(attend, q, k, v, cache)
     out = o.transpose(1, 2).reshape(B, L, H * Dh).to(h.dtype) @ p["wo"]
     return out, cache
 
@@ -346,7 +347,7 @@ def attn_decode_sketched(p, h_t: torch.Tensor, cache: SketchCache, cfg: ModelCon
         o, lse = sketch_decode_attend(q[:, 0], cache, lse=True)
         return shard.combine(o, lse).to(q.dtype), cache
 
-    o, cache = _on_sketch_cache(attend, q, k, v, cache, split_slots=True)
+    o, cache = _on_sketch_cache(attend, q, k, v, cache)
     out = o.reshape(B, 1, H * Dh).to(h_t.dtype) @ p["wo"]
     return out, cache
 
@@ -360,9 +361,9 @@ class _SlotShard(NamedTuple):
     dims: tuple
 
     def local_slots(self, slots) -> np.ndarray:
-        """The (m_r,) slot draw in this shard's numbering: another shard's
-        slots become the padding marker, which the fold drops, so each slot
-        still takes its updates in (pick) order."""
+        """A slot draw (m_r,) or table (L, m_r) in this shard's numbering:
+        another shard's slots become the padding marker, which the fold
+        drops, so each slot still takes its updates in (pick) order."""
         s = np.asarray(slots.cpu() if isinstance(slots, torch.Tensor) else slots, np.int64)
         return np.where((s >= self.lo) & (s < self.hi), s - self.lo, self.hi - self.lo)
 
@@ -383,14 +384,13 @@ class _SlotShard(NamedTuple):
         return num / den[..., None]
 
 
-def _on_sketch_cache(attend, q, k, v, cache: SketchCache, *, split_slots: bool
-                     ) -> tuple[torch.Tensor, SketchCache]:
+def _on_sketch_cache(attend, q, k, v, cache: SketchCache) -> tuple[torch.Tensor, SketchCache]:
     """``attend(q, k, v, cache, shard) → (o, new cache)``, the sketched
     cache's fold and attention: q (B, L, H, Dh), k/v (B, L, Hkv, Dh), o
     (B, H, …).  Off a mesh it runs as it is (``shard`` None).  On a mesh
     (DTensors) it runs on this rank's share: the cache's local shards,
-    split by batch rows and KV heads (and, with ``split_slots``, by slots:
-    ``shard`` a ``_SlotShard``), with q, k and v (one token's, or the
+    split by batch rows, KV heads and slots (``shard`` a ``_SlotShard``
+    where the slots are split), with q, k and v (one token's, or the
     prompt's) gathered and cut to the same rows and heads (all G query
     heads of each local KV head).  A split of any other dim, a size-1 mesh
     dim aside, is gathered first.  The output is a DTensor split by batch
@@ -402,8 +402,7 @@ def _on_sketch_cache(attend, q, k, v, cache: SketchCache, *, split_slots: bool
     from torch.distributed.tensor import Replicate, Shard
 
     dm = cache.k_sum.device_mesh
-    own = (0, 1, 2) if split_slots else (0, 1)
-    keep = [pl if isinstance(pl, Shard) and pl.dim in own
+    keep = [pl if isinstance(pl, Shard) and pl.dim in (0, 1, 2)
             and all(x.placements[i] == pl for x in cache) else Replicate()
             for i, pl in enumerate(cache.k_sum.placements)]
     local = SketchCache(*(x.redistribute(dm, keep).to_local() for x in cache))

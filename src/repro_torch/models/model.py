@@ -43,7 +43,7 @@ from repro_torch.models.common import (
     rmsnorm,
     rope_table,
 )
-from repro_torch.sharding import constrain, from_local, gather_fsdp, is_dtensor
+from repro_torch.sharding import constrain, from_local, gather_fsdp, is_dtensor, pin_grad
 
 Params = dict
 PORTED_KINDS = ("attn", "attn_local", "attn_shared", "mamba2", "mlstm", "slstm")
@@ -294,6 +294,12 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                           cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for sb in _unstack(params["blocks"], cfg.n_superblocks):
+        # on a mesh each view's gradient goes to the view's own (sharded)
+        # placements as soon as its superblock's backward has made it, so
+        # that the unbind's stack waits on shards, as the reference's scan
+        # reduce-scatters each layer's; pinned here, after the superblocks
+        # before it, so that the backward runs the pin before them
+        sb = tree_map(pin_grad, sb)
         h, aux = _remat_call(remat, _superblock, h, aux, sb, params["shared"], cfg, sin,
                              cos, q_chunk)
     h = rmsnorm(_pin(h, cfg), params["final_norm"], cfg.norm_eps)

@@ -124,7 +124,10 @@ def _missing_rules() -> None:
     mLSTM's forget gate), its operands and result placed alike, whole or
     split along any one dimension; and ``mm.dtype`` (the output head's
     product with a float32 result on a card), the rules of ``mm``: rows,
-    columns or the contraction split (the last a partial sum)."""
+    columns or the contraction split (the last a partial sum); and
+    ``cummax`` (the mLSTM's running maximum of its gates) and ``flip``
+    (in ``cumsum``'s backward), the operand and the results placed alike,
+    whole or split along a dimension they do not scan or flip."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
 
@@ -139,6 +142,20 @@ def _missing_rules() -> None:
                 ([Shard(0)], [Shard(0), Replicate(), None]),
                 ([Shard(1)], [Replicate(), Shard(1), None]),
                 ([Partial()], [Shard(1), Shard(0), None])]
+
+    def alike(x, dims, outs):
+        # operand and results placed alike, split only along the other dims
+        kept = {d % x.ndim for d in dims}
+        return [([pl] * outs, [pl, None]) for pl in
+                [Replicate()] + [Shard(d) for d in range(x.ndim) if d not in kept]]
+
+    @register_sharding(torch.ops.aten.cummax.default)
+    def _(x, dim):
+        return alike(x, [dim], 2)
+
+    @register_sharding(torch.ops.aten.flip.default)
+    def _(x, dims):
+        return alike(x, dims, 1)
 
 
 def current_mesh() -> Mesh | None:

@@ -16,7 +16,9 @@ rules (``place_train_state``: ``params_shardings``, ZeRO-1
 ``batch_spec``-sharded; the step runs inside ``with mesh:``, each gradient
 is redistributed to its parameter's placements — the data-parallel mean is
 the one DTensor's reductions imply, as pjit's is — and AdamW updates the
-shards.  Compression sketches each gradient whole (the replicated error
+shards.  Each microbatch is placed as the batch, and each of its gradients
+reaches its parameter's shard before the float32 sum, which so runs on the
+rank's shards, as the reference's scan carry does.  Compression sketches each gradient whole (the replicated error
 feedback's layout, the reference's global arrays) and keeps the result's
 shard.
 """
@@ -105,21 +107,49 @@ def _value_and_grad(params, tokens, labels, cond, cfg: ModelConfig, tc: TrainCon
         lambda _: next(it), params)
 
 
-def _grads(params, tokens, labels, cond, cfg: ModelConfig, tc: TrainConfig):
+def _like(g, p):
+    """The gradient ``g`` on its parameter ``p``'s placements (``g`` as it is
+    off a mesh): a partial sum over the data ranks reduces here."""
+    if not is_dtensor(g) or list(g.placements) == list(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def _microbatches(x, n_micro: int, mesh: Mesh | None, policy: str) -> list:
+    """``x``'s n_micro microbatches, the contiguous rows [k·mb, (k+1)·mb) as
+    the reference's ``reshape(n_micro, mb, …)`` makes them.  A DTensor's
+    rows are gathered once and each microbatch is placed by ``batch_spec``,
+    as the batch was (over the data axes that split mb evenly): slicing the
+    DTensor would give it replicated."""
+    if x is None:
+        return [None] * n_micro
+    mb = x.shape[0] // n_micro
+    whole = x.full_tensor() if is_dtensor(x) else x
+    parts = [whole[k * mb:(k + 1) * mb] for k in range(n_micro)]
+    if not is_dtensor(x):
+        return parts
+    spec = batch_spec(mesh, mb, extra_dims=x.ndim - 1, policy=policy)
+    return [distribute(t, mesh, spec) for t in parts]
+
+
+def _grads(params, tokens, labels, cond, cfg: ModelConfig, tc: TrainConfig,
+           mesh: Mesh | None = None):
     if tc.n_micro == 1:
         return _value_and_grad(params, tokens, labels, cond, cfg, tc)
     B = tokens.shape[0]
     if B % tc.n_micro:
         raise ValueError(f"batch {B} does not split into {tc.n_micro} microbatches")
-    mb = B // tc.n_micro
     acc = tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32), params)
     loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for k in range(tc.n_micro):
-        sl = slice(k * mb, (k + 1) * mb)
-        c = cond[sl] if cond is not None else None
-        lk, mets, g = _value_and_grad(params, tokens[sl], labels[sl], c, cfg, tc)
-        for a, gk in zip(tree_leaves(acc), tree_leaves(g)):
-            a.add_(gk.float() / tc.n_micro)
+    micro = zip(*(_microbatches(x, tc.n_micro, mesh, cfg.sharding_policy)
+                  for x in (tokens, labels, cond)))
+    for tk, lb, c in micro:
+        lk, mets, g = _value_and_grad(params, tk, lb, c, cfg, tc)
+        # on a mesh each gradient reaches its parameter's shard before the
+        # float32 sum, as the reference's scan keeps its carry
+        for a, gk, p in zip(tree_leaves(acc), tree_leaves(g), tree_leaves(params)):
+            a.add_(_like(gk, p).float() / tc.n_micro)
+        del g, gk    # not held through the next microbatch
         loss = loss + lk / tc.n_micro
     return loss, mets, acc
 
@@ -153,10 +183,6 @@ def _train_step_sharded(state: TrainState, tokens, labels, step: int, cfg: Model
     """``train_step`` on a 2-D mesh: the state DTensors, (tokens, labels)
     the global batch (DTensors, or whole tensors placed here by
     ``batch_spec``).  The metrics come back as whole tensors."""
-    def like_param(g, p):
-        return g if list(g.placements) == list(p.placements) else g.redistribute(
-            p.device_mesh, p.placements)
-
     def placed(t):
         if t is None or is_dtensor(t):
             return t
@@ -165,11 +191,12 @@ def _train_step_sharded(state: TrainState, tokens, labels, step: int, cfg: Model
 
     tokens, labels, cond = placed(tokens), placed(labels), placed(cond)
     with mesh:
-        loss, mets, grads = _grads(state.params, tokens, labels, cond, cfg, tc)
+        loss, mets, grads = _grads(state.params, tokens, labels, cond, cfg, tc, mesh)
         # a gradient's partial sums over the data ranks reduce here (the
-        # data-parallel mean of the global batch's loss)
+        # data-parallel mean of the global batch's loss; in microbatches
+        # ``_grads`` has reduced them)
         it = iter(tree_leaves(state.params))
-        grads = tree_map(lambda g: like_param(g, next(it)), grads)
+        grads = tree_map(lambda g: _like(g, next(it)), grads)
         ef = state.ef
         if tc.compress is not None:
             # each leaf gathered whole, compressed against the replicated

@@ -25,7 +25,16 @@ reference's ``repro.launch``, on the CPU.
   the eager port computes both); the attention chunks recompute their
   scores in the backward, as the reference's ``jax.checkpoint`` does.  So
   do those of a reduced xlstm-125m training step, whose "dp_only" policy
-  splits the batch over both axes: each rank's loss covers its own rows.
+  splits the batch over both axes: each rank's loss covers its own rows,
+  in one microbatch and in four (each placed as the batch).
+- A sketched prefill into a cache split on its slots over both axes: the
+  per-rank FLOPs equal the reference's compiled per-partition FLOPs, a
+  quarter of the slot-wide products a rank.
+- A default-policy training step in four microbatches at two depths: at
+  the peak the float32 storages are parameter shards, no whole stacked
+  gradient is held and the gathered weight gradients are at most one
+  superblock's; the peak grows a superblock by at most one carry and the
+  rank's shard of its state and gradients.
 - A training step at gemma3-12b's vocabulary on the (2, 2) group holds,
   above its arguments, less than one chunk's float32 logits for the whole
   microbatch: the loss backward works on the rank's share.
@@ -76,15 +85,23 @@ CELLS = [(a, s) for a in ARCHS for s in SHAPES]
 MESHES = {"16x16": {"data": 16, "model": 16}, "2x16x16": {"pod": 2, "data": 16, "model": 16}}
 # reduced cells compared with the reference on a (2, 2) mesh: a training
 # batch whose microbatches split over the data axis, prefill, the exact
-# decode and the sketched one (long_500k's name selects the sketch cache)
+# decode and the sketched one (long_500k's name selects the sketch cache);
+# "train-micro" is 16 rows in four microbatches under any policy
 REDUCED = {"train": ShapeSpec("train_4k", 64, 8, "train"),
            "prefill": ShapeSpec("prefill_32k", 64, 4, "prefill"),
            "decode": ShapeSpec("decode_32k", 64, 4, "decode"),
-           "sketched": ShapeSpec("long_500k", 64, 4, "decode")}
+           "sketched": ShapeSpec("long_500k", 64, 4, "decode"),
+           "train-micro": ShapeSpec("train_4k", 64, 16, "train")}
 REDUCED_ARCHS = ("stablelm-3b", "moonshot-v1-16b-a3b")
-# every one of those cells, and a training step under "dp_only" (xlstm-125m:
-# the batch split over both axes, so each rank's loss is its own rows')
-REDUCED_CELLS = [(a, k) for a in REDUCED_ARCHS for k in REDUCED] + [("xlstm-125m", "train")]
+# every one of those cells but "train-micro", and training steps under
+# "dp_only" (xlstm-125m: the batch split over both axes, so each rank's loss
+# is its own rows'), in one microbatch as the dry run's cells and in four,
+# each microbatch placed as the batch
+REDUCED_CELLS = [(a, k) for a in REDUCED_ARCHS for k in REDUCED if k != "train-micro"] + [
+    ("xlstm-125m", "train"), ("xlstm-125m", "train-micro")]
+# a sketched prefill of one attention layer into a cache split on its slots
+# over both axes: (arch, batch, tokens, chunk)
+PREFILL_SLOTS = ("stablelm-3b", 1, 48, 16)
 
 
 @contextlib.contextmanager
@@ -176,8 +193,9 @@ for name, key in json.loads(sys.argv[1]):
     cfg = reduced(ARCHS[name])
     shape = ShapeSpec(*shapes[key])
     if shape.kind == "train":
-        # one microbatch under "dp_only", as the dry run's cells
-        n_micro = 1 if cfg.sharding_policy == "dp_only" else 4
+        # one microbatch under "dp_only", as the dry run's cells, but in
+        # "train-micro"
+        n_micro = 1 if cfg.sharding_policy == "dp_only" and key == "train" else 4
         cell = RS.train_cell(cfg, shape, mesh, TrainConfig(n_micro=n_micro))
     elif shape.kind == "prefill":
         cell = RS.prefill_cell(cfg, shape, mesh)
@@ -187,6 +205,34 @@ for name, key in json.loads(sys.argv[1]):
         compiled = jax.jit(cell.fn, in_shardings=cell.in_shardings).lower(
             *cell.args).compile()
     out["cells"][f"{name}/{key}"] = analyze(compiled).flops
+# a sketched prefill (one attention layer) into a cache whose slots are split
+# over both axes, and the same on one device
+import numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.core.sketched_attention import SketchCache, decode_slot_table
+from repro.models import attention as RA
+from repro.models.common import rope_table
+name, B, L, c = json.loads(sys.argv[3])
+cfg = reduced(ARCHS[name])
+D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+table = decode_slot_table(jax.random.PRNGKey(0), L, cfg.sketch_attn.d_slots, cfg.sketch_attn.m_r)
+sin, cos = rope_table(jax.numpy.arange(L), Dh, cfg.rope_theta)
+z = np.zeros
+p = {"wq": z((D, H * Dh), np.float32), "wk": z((D, Hkv * Dh), np.float32),
+     "wv": z((D, Hkv * Dh), np.float32), "wo": z((H * Dh, D), np.float32)}
+args = (p, z((B, L, D), np.float32), RA.init_attn_sketch_cache(cfg, B, jax.numpy.float32))
+
+
+def prefill(p, h, cache):
+    return RA.attn_prefill_sketched(p, h, cache, cfg, sin, cos, table, chunk=c)
+
+
+out["prefill_slots"] = {"one": analyze(jax.jit(prefill).lower(*args).compile()).flops}
+rep, slots = NamedSharding(mesh, P()), P(None, None, ("data", "model"))
+split = SketchCache(*(NamedSharding(mesh, P(*slots, None)),) * 2, NamedSharding(mesh, slots))
+with mesh:
+    out["prefill_slots"]["split"] = analyze(jax.jit(prefill, in_shardings=(
+        {k: rep for k in p}, rep, split)).lower(*args).compile()).flops
 print("RESULT " + json.dumps(out))
 '''
 
@@ -199,8 +245,8 @@ def reference():
         [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
     shapes = {k: (s.name, s.seq_len, s.global_batch, s.kind) for k, s in REDUCED.items()}
     p = subprocess.run([sys.executable, "-c", _REFERENCE, json.dumps(REDUCED_CELLS),
-                        json.dumps(shapes)], env=env, capture_output=True, text=True,
-                       timeout=600)
+                        json.dumps(shapes), json.dumps(PREFILL_SLOTS)], env=env,
+                       capture_output=True, text=True, timeout=600)
     assert p.returncode == 0, p.stderr[-4000:]
     line = [ln for ln in p.stdout.splitlines() if ln.startswith("RESULT ")][-1]
     return json.loads(line[len("RESULT "):])
@@ -222,7 +268,7 @@ def test_list_prints_the_reference_lines(reference):
 def _reduced_cell(name: str, key: str, mesh):
     cfg, shape = reduced(ARCHS[name]), REDUCED[key]
     if shape.kind == "train":
-        n_micro = 1 if cfg.sharding_policy == "dp_only" else 4
+        n_micro = 1 if cfg.sharding_policy == "dp_only" and key == "train" else 4
         return TS.train_cell(cfg, shape, mesh, TrainConfig(n_micro=n_micro), device="cpu")
     if shape.kind == "prefill":
         return TS.prefill_cell(cfg, shape, mesh, device="cpu")
@@ -233,7 +279,7 @@ def _counted_gap(rec, cfg, key: str) -> float:
     """The port's per-rank FLOPs less the reference's per-partition FLOPs,
     counted from the reduced cell ``key`` (see the module docstring): in
     training the loss chunks' forward logits, zero elsewhere."""
-    if key != "train":
+    if REDUCED[key].kind != "train":
         return 0.0
     # each loss chunk's logits twice (the forward, its recompute), the
     # head's (…, V) products
@@ -259,7 +305,7 @@ def test_reduced_cells_per_rank_flops_match_the_reference(reference):
     for cell, want in reference["cells"].items():
         flops, gap = got[cell]
         assert flops == want + gap, (cell, flops, want, gap)
-        assert (gap > 0) == cell.endswith("/train"), (cell, gap)
+        assert (gap > 0) == (REDUCED[cell.split("/")[1]].kind == "train"), (cell, gap)
 
 
 def test_training_on_a_mesh_holds_a_rank_share_of_the_loss_logits():
@@ -279,6 +325,120 @@ def test_training_on_a_mesh_holds_a_rank_share_of_the_loss_logits():
     buf = B // n_micro // 2 * S * cfg.vocab_size * 4
     rise = rec.peak_bytes - rec.arg_bytes
     assert rise < 2 * buf, (rise / buf, rec.peak_by_op)
+
+
+def test_slot_split_sketched_prefill_computes_a_rank_share_of_the_slot_products(reference):
+    """A sketched prefill (``PREFILL_SLOTS``: reduced stablelm-3b's attention,
+    float32, 48 tokens in chunks of 16) into a cache whose slots are split
+    over ("data", "model") on the (2, 2) group: rank 0's FLOPs equal the
+    reference's compiled ``attn_prefill_sketched`` per partition, jitted
+    with the cache placed by that spec (its compile does not gather the
+    slots), and one process's equal the reference's on one device.  Both
+    are one process's less 3/4 of the slot-wide products, each chunk's
+    2·B·H·c·(2·d·Dh + 2·c·d) (q·k_sum, A·w, pn·wᵀ and pn·v_sum, d =
+    d_slots), counted from the shapes: every rank computes the projections
+    and the chunk's (c, c) scores whole, and the slot-wide products on its
+    d/4 slots."""
+    from repro_torch.analysis.trace import record
+    from repro_torch.core.sketched_attention import decode_slot_table
+    from repro_torch.models import attention as att
+    from repro_torch.models.common import rope_table
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import make_mesh
+
+    name, B, L, c = PREFILL_SLOTS
+    cfg = reduced(ARCHS[name])
+    sa, H, Dh = cfg.sketch_attn, cfg.n_heads, cfg.head_dim
+    table = decode_slot_table(0, L, sa.d_slots, sa.m_r)
+    f32 = torch.float32
+
+    def prefill(p, h, cache):
+        sin, cos = rope_table(torch.arange(L, device=h.device), Dh, cfg.rope_theta)
+        return att.attn_prefill_sketched(p, h, cache, cfg, sin, cos, table, chunk=c)
+
+    p = {k: v[0] for k, v in init_params(0, cfg, device="cpu", dtype=f32)["blocks"]["pos0"][
+        "attn"].items()}
+    h = torch.randn((B, L, cfg.d_model), generator=torch.Generator().manual_seed(0))
+    one = record(prefill, p, h, att.init_attn_sketch_cache(cfg, B, f32, device="cpu")).flops
+    fm = TS._fake_mode()
+    with fake_group(4):
+        mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+        with fm:
+            pf = {k: torch.empty_like(v) for k, v in p.items()}
+            hf = torch.empty_like(h)
+            cache = att.init_attn_sketch_cache(cfg, B, f32, device="cpu")
+        cache = type(cache)(*(TS._place(x, mesh, (None, None, ("data", "model"), None)[:x.ndim],
+                                        fm) for x in cache))
+        with mesh:
+            rec = record_rank(prefill, pf, hf, cache, fake_mode=fm, device="cpu")
+    _, new = rec.result
+    assert [x.to_local().shape[2] for x in new] == [sa.d_slots // 4] * 3
+
+    def slot_wide(d):
+        return sum(2 * B * H * n * (2 * d * Dh + 2 * n * d)
+                   for n in (min(c, L - t0) for t0 in range(0, L, c)))
+
+    want = reference["prefill_slots"]
+    assert one == want["one"]
+    assert rec.flops == want["split"] == one - slot_wide(sa.d_slots) + slot_wide(
+        sa.d_slots // 4), (rec.flops, want, slot_wide(sa.d_slots))
+
+
+def _train_peak(cfg, n_sb: int):
+    """A default-policy training step of ``cfg`` cut to ``n_sb`` superblocks,
+    8 rows of 16 tokens in four microbatches, recorded on the (2, 2) group:
+    (the recording, the cell's parameters)."""
+    from repro_torch.sharding import make_mesh
+
+    cfg = dataclasses.replace(cfg, n_superblocks=n_sb, n_layers=n_sb * len(cfg.pattern))
+    with fake_group(4):
+        mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+        cell = TS.train_cell(cfg, ShapeSpec("train_4k", 16, 8, "train"), mesh,
+                             TrainConfig(n_micro=4), device="cpu")
+        with mesh:
+            rec = record_rank(cell.fn, *cell.args, fake_mode=cell.fake_mode, device="cpu")
+    return rec, cell.args[0].params
+
+
+def test_microbatch_gradients_accumulate_on_the_rank_shards():
+    """The microbatches' gradients are summed on each rank's shard of the
+    parameters, as the reference's scan keeps its float32 carry, and each
+    superblock's gathered (or partial) weight gradients die with its
+    backward.  A wide, shallow bfloat16 stablelm-3b (d_model 512, the
+    weights dominate) at 2 and 4 superblocks: at the peak no float32
+    storage is larger than the largest parameter shard in float32, no
+    storage has a stacked parameter's whole shape, and the storages with a
+    superblock weight's whole shape hold at most one superblock's weights;
+    each added superblock raises the peak by at most one carry (the
+    superblock's saved input, a data rank's microbatch rows) and the rank's
+    shard of its state (bfloat16 parameters, float32 m, v and master) and
+    gradients (the bfloat16 gradient, the float32 sum and its addend)."""
+    from repro_torch.sharding import is_dtensor
+
+    cfg = reduced(ARCHS["stablelm-3b"]).scaled(d_model=512, n_heads=8, n_kv_heads=8,
+                                              head_dim=64, d_ff=1024)
+    peaks = {}
+    for n_sb in (2, 4):
+        rec, params = _train_peak(cfg, n_sb)
+        peaks[n_sb] = rec.peak_bytes
+        leaves = tree_leaves(params)
+        assert all(is_dtensor(x) for x in leaves)
+        shard_f32 = max(x.to_local().numel() for x in leaves) * 4
+        split = [x for x in tree_leaves(params["blocks"]) if x.to_local().numel() < x.numel()]
+        stacked = {tuple(x.shape) for x in split}
+        whole = {tuple(x.shape[1:]) for x in split}
+        sb_bytes = sum(x[0].numel() * x.element_size() for x in split)
+        f32 = sorted((b, op, sh) for b, op, sh, dt in rec.peak_storages if dt == torch.float32)
+        assert f32[-1][0] <= shard_f32, (n_sb, f32[-3:])
+        assert not [st for st in rec.peak_storages if st[2] in stacked], n_sb
+        gathered = [st for st in rec.peak_storages if st[2] in whole]
+        assert sum(st[0] for st in gathered) <= sb_bytes, (n_sb, gathered, sb_bytes)
+    # per added superblock: one carry (a data rank's rows of a microbatch,
+    # 8 / 4 / 2 of them) and, a parameter of the rank's shard of one
+    # superblock, 2 + 12 bytes of state and 2 + 4 + 4 of gradients
+    carry = 8 // 4 // 2 * 16 * cfg.d_model * 2
+    per_sb = sum(x.to_local().numel() for x in tree_leaves(params["blocks"])) // 4
+    assert peaks[4] - peaks[2] <= 2 * (carry + 24 * per_sb), (peaks, carry, per_sb)
 
 
 def _non_view(rec) -> list:

@@ -34,6 +34,10 @@ They write whole (gathered) results and digests; this process compares.
   largest entry, and bit for bit in the three extra layouts (measured:
   logits within 7e-7, caches bit for bit); the cache leaves keep their
   placements.
+- A ``train_step`` in two microbatches (reduced stablelm-3b, and xlstm-125m
+  whose "dp_only" batch is split over both axes; float32 state) against one
+  process: the loss at 1e-6 relative, the gradient norm at 1e-5 relative
+  and AdamW's first moment at 1e-5 of each leaf's largest entry.
 - A wide, shallow stablelm-3b (d_model 512) on a batch of 2 × 4 tokens:
   DTensor moves the activations rather than gather the FSDP weights, so
   the products before the aligned reshapes are partial sums over "data";
@@ -69,6 +73,7 @@ from repro_torch.configs import ARCHS, reduced  # noqa: E402
 from repro_torch.configs.base import MoECfg  # noqa: E402
 from repro_torch.models import moe as MO  # noqa: E402
 from repro_torch.models.model import init_params, loss_fn  # noqa: E402
+from repro_torch.train.step import TrainConfig  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD, SHAPE = 4, (2, 2)
@@ -110,6 +115,10 @@ WIDE = reduced(ARCHS["stablelm-3b"]).scaled(d_model=512, n_heads=8, n_kv_heads=8
                                             head_dim=64, d_ff=1024)
 WIDE_BATCH_SEQ = (2, 4)
 EXPERT_NAMES = ("wi_gate", "wi_up", "wo")
+# a train_step of the batch in two microbatches, each placed as the batch
+# (under "dp_only", xlstm-125m's, split over both axes)
+MICRO_ARCHS = ("stablelm-3b", "xlstm-125m")
+MICRO_TC = TrainConfig(n_micro=2, q_chunk=8)
 
 
 def _moe_inputs(case: str) -> dict:
@@ -293,6 +302,18 @@ def _worker(rank: str, store: str, base: str) -> int:
                 whole = sh.full(g)
                 out[f"{arch}_g{i}"] = whole.numpy()
                 report["digests"][f"{arch}_g{i}"] = _digest(whole)
+        # a training step in two microbatches, float32 state
+        for arch in MICRO_ARCHS:
+            cfg = MODELS[arch]
+            state = ST.place_train_state(ST.init_train_state(
+                init_params(0, cfg, device="cpu", dtype=torch.float32), MICRO_TC), mesh,
+                cfg.sharding_policy)
+            state, mets = ST.train_step(state, *_batch(cfg), 0, cfg, MICRO_TC, mesh=mesh)
+            for k, v in {"loss": mets["loss"], "grad_norm": mets["grad_norm"],
+                         **{f"m{i}": m for i, m in enumerate(tree_leaves(state.opt.m))}}.items():
+                whole = sh.full(v).detach()
+                out[f"{arch}_micro_{k}"] = whole.numpy()
+                report["digests"][f"{arch}_micro_{k}"] = _digest(whole)
         # the wide model on the tiny batch
         params = init_params(0, WIDE, device="cpu", dtype=torch.float32)
         params = sh.shard_tree(params, mesh, sh.params_shardings(mesh, params))
@@ -564,6 +585,29 @@ def test_model_on_the_mesh_equals_one_process(ranks, arch):
         tol = 2.0 ** -8 if cfg.moe is not None and name.split("/")[-1] in EXPERT_NAMES \
             and "/ffn/" in f"/{name}/" else 1e-5
         assert _max_err(got[f"{arch}_g{i}"], want) <= tol * scale, (name,)
+
+
+@pytest.mark.parametrize("arch", MICRO_ARCHS)
+def test_microbatched_step_on_the_mesh_equals_one_process(ranks, arch):
+    # the step's loss at 1e-6 relative, its gradient norm at 1e-5 relative
+    # and each leaf of AdamW's first moment (a tenth of the gradient) at
+    # 1e-5 of its largest entry: the microbatches' gradients summed on the
+    # ranks' shards, in another order than one process's
+    from repro_torch._util import tree_leaves
+    from repro_torch.train import step as ST
+
+    _, _, got, _ = ranks
+    cfg = MODELS[arch]
+    params = init_params(0, cfg, device="cpu", dtype=torch.float32)
+    state, mets = ST.train_step(ST.init_train_state(params, MICRO_TC), *_batch(cfg), 0,
+                                cfg, MICRO_TC)
+    for k, rel in (("loss", 1e-6), ("grad_norm", 1e-5)):
+        want = float(mets[k])
+        assert abs(float(got[f"{arch}_micro_{k}"]) - want) <= rel * abs(want), k
+    for i, (name, m) in enumerate(zip(_leaf_names(params), tree_leaves(state.opt.m))):
+        want = m.numpy()
+        scale = max(float(np.abs(want).max()), 1e-30)
+        assert _max_err(got[f"{arch}_micro_m{i}"], want) <= 1e-5 * scale, (name,)
 
 
 def test_partial_products_before_a_reshape_train_on_the_mesh(ranks):
