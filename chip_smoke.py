@@ -158,11 +158,14 @@
         nothing-dropped MoE layer (capacity factor E/K) against
         ``moe_forward_local``; one bfloat16 AdamW step of moonshot's sharded
         state: its ms, each rank's state shards and peak memory against the
-        reckoned quarter of 14 B a parameter, aux and dropped; then two
+        reckoned quarter of 14 B a parameter, aux and dropped; then four
         reduced checks against rank 0's one process (``mesh2d_reduced``):
         a "dp_only" xlstm-125m step in 4 microbatches, each placed as the
-        batch, and a sketched prefill into a cache split on its slots over
-        both axes (cache bit for bit), each with its seconds.
+        batch, a sketched prefill into a cache split on its slots over
+        both axes (cache bit for bit), an exact decode step over a cache
+        whose positions are split on "model" (one model rank holding no
+        valid position), and a zamba2-7b training step (its Mamba-2 conv
+        and SSD on each rank's shards), each with its seconds.
    Then path (t), the dry run (``dryrun_path``: ``repro_torch.launch.specs``,
    ``.dryrun``, ``.analysis`` and the rank recorder), once, its launch
    counts from 0 (only landmark_attention may launch, in (t1)'s real
@@ -1668,16 +1671,25 @@ def is_expert(name: str) -> bool:
 # 1e-5 relative, AdamW's first moment at 1e-5 of each leaf's largest
 # entry), and a sketched prefill of reduced stablelm-3b (float32, 2 × 64
 # tokens) into a cache split on its slots over both axes (the logits at
-# 1e-5 of their largest entry, the cache bit for bit)
+# 1e-5 of their largest entry, the cache bit for bit); an exact prefill of
+# the same tokens and one decode step at position 64 over a cache of
+# S_EXACT_LEN positions placed by cache_shardings (the batch on data, the
+# positions on model: the second model rank's [96, 192) hold no valid
+# position; both steps' logits at 1e-5 of their largest entry, the cache at
+# 1e-6 of its largest), and a reduced zamba2-7b training step of 4 × 32
+# tokens in 2 microbatches (float32 state; loss, gradient norm and first
+# moment as the "dp_only" step's)
 S_MICRO_ARCH, S_MICRO, S_MICRO_BATCH_SEQ = "xlstm-125m", 4, (16, 32)
 S_PREFILL_ARCH, S_PREFILL_BATCH_SEQ = "stablelm-3b", (2, 64)
+S_EXACT_LEN = 192
+S_SSM_ARCH, S_SSM_MICRO, S_SSM_BATCH_SEQ = "zamba2-7b", 2, (4, 32)
 
 
 def mesh2d_reduced(torch, mesh, rank: int) -> dict:
     """(s2)'s reduced checks on this rank's share of the (data 2, model 2)
     mesh, with rank 0's one-process results and errors: {"micro_s",
-    "prefill_s", "digest" (the gathered results', equal on every rank), and
-    on rank 0 "micro" and "prefill"}."""
+    "prefill_s", "exact_s", "ssm_s", "digest" (the gathered results', equal
+    on every rank), and on rank 0 "micro", "prefill", "exact" and "ssm"}."""
     import hashlib
 
     from repro_torch import sharding as sh
@@ -1685,7 +1697,7 @@ def mesh2d_reduced(torch, mesh, rank: int) -> dict:
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.sketched_attention import decode_slot_table
     from repro_torch.data.pipeline import DataConfig, global_batch
-    from repro_torch.models.model import init_cache, init_params, prefill_with_cache
+    from repro_torch.models.model import decode_step, init_cache, init_params, prefill_with_cache
     from repro_torch.train import step as TS
 
     def rel(a, b):
@@ -1696,12 +1708,8 @@ def mesh2d_reduced(torch, mesh, rank: int) -> dict:
                                        global_batch=b), 0, device="cpu")
 
     res, whole = {}, []
-    # a "dp_only" step in S_MICRO microbatches
-    cfg = reduced(get_config(S_MICRO_ARCH))
-    tc = TS.TrainConfig(n_micro=S_MICRO)
-    tok, lab = batch(cfg, *S_MICRO_BATCH_SEQ)
 
-    def step(mesh_=None):
+    def step(cfg, tc, tok, lab, mesh_=None):
         state = TS.init_train_state(init_params(0, cfg, device="cpu", dtype=torch.float32), tc)
         if mesh_ is not None:
             state = TS.place_train_state(state, mesh_, cfg.sharding_policy)
@@ -1709,15 +1717,22 @@ def mesh2d_reduced(torch, mesh, rank: int) -> dict:
         return ([sh.full(mets[k]) for k in ("loss", "grad_norm")],
                 [sh.full(m) for m in tree_leaves(state.opt.m)])
 
-    t0 = time.perf_counter()
-    got = step(mesh)
-    res["micro_s"] = time.perf_counter() - t0
-    whole += got[0] + got[1]
-    if rank == 0:
-        want = step()
-        res["micro"] = dict(loss_rel=rel(got[0][0], want[0][0]),
-                            norm_rel=rel(got[0][1], want[0][1]),
-                            m_err=max(rel(a, b) for a, b in zip(got[1], want[1])))
+    def stepped(name, arch, n_micro, batch_seq):
+        # a float32 training step on the mesh, and on rank 0 in one process
+        cfg = reduced(get_config(arch))
+        args = (cfg, TS.TrainConfig(n_micro=n_micro), *batch(cfg, *batch_seq))
+        t0 = time.perf_counter()
+        got = step(*args, mesh)
+        res[f"{name}_s"] = time.perf_counter() - t0
+        whole.extend(got[0] + got[1])
+        if rank == 0:
+            want = step(*args)
+            res[name] = dict(loss_rel=rel(got[0][0], want[0][0]),
+                             norm_rel=rel(got[0][1], want[0][1]),
+                             m_err=max(rel(a, b) for a, b in zip(got[1], want[1])))
+
+    # a "dp_only" step in S_MICRO microbatches
+    stepped("micro", S_MICRO_ARCH, S_MICRO, S_MICRO_BATCH_SEQ)
     # a sketched prefill into a cache split on its slots over both axes
     cfg = reduced(get_config(S_PREFILL_ARCH))
     B, L = S_PREFILL_BATCH_SEQ
@@ -1747,6 +1762,34 @@ def mesh2d_reduced(torch, mesh, rank: int) -> dict:
         res["prefill"] = dict(logit_err=rel(got[0], want[0]),
                               cache_bitwise=all(torch.equal(a, b)
                                                 for a, b in zip(got[1], want[1])))
+    # an exact prefill and one decode step over a cache of S_EXACT_LEN
+    # positions placed by cache_shardings (positions on "model")
+    nxt = tok[:, -1].contiguous()
+
+    def exact(mesh_=None):
+        params = init_params(0, cfg, device="cpu", dtype=torch.float32)
+        cache = init_cache(cfg, B, S_EXACT_LEN, dtype=torch.float32, device="cpu")
+        t, n = tok, nxt
+        if mesh_ is not None:
+            params = sh.shard_tree(params, mesh_, sh.params_shardings(mesh_, params))
+            cache = tree_map(lambda x: sh.distribute(x, mesh_, tuple(sh.cache_shardings(
+                mesh_, x[None], B)[1:])), cache)
+            t, n = (sh.distribute(x, mesh_, sh.batch_spec(mesh_, B)) for x in (tok, nxt))
+        with torch.no_grad(), (mesh_ if mesh_ is not None else contextlib.nullcontext()):
+            first, cache = prefill_with_cache(params, t, cfg, cache)
+            second, cache = decode_step(params, cache, n, L, cfg)
+        return [sh.full(first), sh.full(second)], [sh.full(x) for x in tree_leaves(cache)]
+
+    t0 = time.perf_counter()
+    got = exact(mesh)
+    res["exact_s"] = time.perf_counter() - t0
+    whole += got[0] + got[1]
+    if rank == 0:
+        want = exact()
+        res["exact"] = dict(logit_err=max(rel(a, b) for a, b in zip(got[0], want[0])),
+                            cache_err=max(rel(a, b) for a, b in zip(got[1], want[1])))
+    # a zamba2-7b step in S_SSM_MICRO microbatches
+    stepped("ssm", S_SSM_ARCH, S_SSM_MICRO, S_SSM_BATCH_SEQ)
     res["digest"] = hashlib.sha1(b"".join(x.detach().contiguous().numpy().tobytes()
                                           for x in whole)).hexdigest()
     return res
@@ -2165,17 +2208,28 @@ def mesh2d_path(torch, dev, smi: str, *, batch_seq=S_CPU_BATCH_SEQ,
           "(s2) the AdamW state placed by opt_shardings; the bfloat16 step's parameters "
           "bitwise equal on the ranks, its loss finite")
     red = [r["reduced"] for r in reps]
-    mi, pf = red[0]["micro"], red[0]["prefill"]
+    mi, pf, ex, ss = (red[0][k] for k in ("micro", "prefill", "exact", "ssm"))
     print(f"  (s2) reduced checks against one process: a \"dp_only\" {S_MICRO_ARCH} step of "
           f"{S_MICRO_BATCH_SEQ[0]}×{S_MICRO_BATCH_SEQ[1]} tokens in {S_MICRO} microbatches "
           f"{[round(r['micro_s'], 2) for r in red]} s by rank; a sketched {S_PREFILL_ARCH} "
           f"prefill of {S_PREFILL_BATCH_SEQ[0]}×{S_PREFILL_BATCH_SEQ[1]} tokens into a cache "
           f"split on its slots over both axes {[round(r['prefill_s'], 2) for r in red]} s by "
           f"rank")
-    check(mi["loss_rel"] <= 1e-6 and mi["norm_rel"] <= 1e-5 and mi["m_err"] <= 1e-5,
-          f"(s2) the \"dp_only\" step in {S_MICRO} microbatches against one process: loss "
-          f"rel {mi['loss_rel']:.2e} (tol 1e-6), gradient norm rel {mi['norm_rel']:.2e} (tol "
-          f"1e-5), AdamW's first moment {mi['m_err']:.2e} of a leaf's largest (tol 1e-5)")
+    print(f"  (s2) reduced checks against one process: an exact {S_PREFILL_ARCH} prefill and "
+          f"decode step over {S_EXACT_LEN} positions split on model "
+          f"{[round(r['exact_s'], 2) for r in red]} s by rank; a {S_SSM_ARCH} step of "
+          f"{S_SSM_BATCH_SEQ[0]}×{S_SSM_BATCH_SEQ[1]} tokens in {S_SSM_MICRO} microbatches "
+          f"{[round(r['ssm_s'], 2) for r in red]} s by rank; torch {torch.__version__}")
+    for name, what, m in (("micro", f"the \"dp_only\" step in {S_MICRO} microbatches", mi),
+                          ("ssm", f"the {S_SSM_ARCH} step in {S_SSM_MICRO} microbatches", ss)):
+        check(m["loss_rel"] <= 1e-6 and m["norm_rel"] <= 1e-5 and m["m_err"] <= 1e-5,
+              f"(s2) {what} against one process: loss rel {m['loss_rel']:.2e} (tol 1e-6), "
+              f"gradient norm rel {m['norm_rel']:.2e} (tol 1e-5), AdamW's first moment "
+              f"{m['m_err']:.2e} of a leaf's largest (tol 1e-5)")
+    check(ex["logit_err"] <= 1e-5 and ex["cache_err"] <= 1e-6,
+          f"(s2) the exact decode with its positions split on model against one process: "
+          f"logits {ex['logit_err']:.2e} of their largest (tol 1e-5), cache "
+          f"{ex['cache_err']:.2e} of its largest (tol 1e-6)")
     check(pf["logit_err"] <= 1e-5 and pf["cache_bitwise"],
           f"(s2) the slot-split sketched prefill against one process: logits "
           f"{pf['logit_err']:.2e} of their largest (tol 1e-5), cache "

@@ -1,14 +1,19 @@
 """The dry run's full sweep: every (architecture × shape) cell on both
 production meshes, one ``python -m repro_torch.launch.dryrun`` process a
-cell, ``--jobs`` of them at a time (each traces one rank, single-threaded),
-then one markdown table of the records.
+cell and mesh, ``--jobs`` of them at a time (each traces one rank,
+single-threaded, and holds one mesh's recording), then one markdown table
+of the records.
 
-  python3 scripts/dryrun_sweep.py --out sweep.jsonl [--jobs 8] [--device cpu]
+  python3 scripts/dryrun_sweep.py --out sweep.jsonl [--jobs 8] [--device cpu] \
+      [--skip xlstm-125m/train_4k]
 
 The records are the CLI's own (``--out`` of each process, concatenated);
-each process's log goes beside the output, as ``<out>.logs/<arch>.<shape>.log``.
+each process's log goes beside the output, as
+``<out>.logs/<arch>.<shape>.<mesh>.log``.
 Training cells start first: they take longest.  A cell that has written no
-record within CELL_TIMEOUT seconds is recorded as failed.
+record within CELL_TIMEOUT seconds is recorded as failed.  ``--skip`` leaves
+cells out; the summary counts the records that list ops DTensor of torch
+2.11 refuses (``refused``).
 """
 from __future__ import annotations
 
@@ -41,21 +46,24 @@ def _env() -> dict:
         [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
 
 
-def run(arch: str, shape: str, logs: Path, device: str) -> tuple[list, float]:
-    """One cell on both meshes: (its records, seconds)."""
-    out = logs / f"{arch}.{shape}.jsonl"
+MESHES = {"single": "16x16", "multi": "2x16x16"}
+
+
+def run(arch: str, shape: str, mesh: str, logs: Path, device: str) -> tuple[list, float]:
+    """One cell on one mesh ("single" or "multi"): (its records, seconds)."""
+    out = logs / f"{arch}.{shape}.{mesh}.jsonl"
     t0 = time.perf_counter()
-    with open(logs / f"{arch}.{shape}.log", "w") as log:
+    with open(logs / f"{arch}.{shape}.{mesh}.log", "w") as log:
         try:
             subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                            "--shape", shape, "--mesh", "both", "--device", device,
+                            "--shape", shape, "--mesh", mesh, "--device", device,
                             "--out", str(out)], env=_env(), stdout=log,
                            stderr=subprocess.STDOUT, timeout=CELL_TIMEOUT)
         except subprocess.TimeoutExpired:
             pass
     recs = [json.loads(line) for line in out.read_text().splitlines()] if out.exists() else []
-    for mesh in ("16x16", "2x16x16")[len(recs):]:
-        recs.append({"arch": arch, "shape": shape, "mesh": mesh, "ok": False,
+    if not recs:
+        recs.append({"arch": arch, "shape": shape, "mesh": MESHES[mesh], "ok": False,
                      "error": f"no record within {CELL_TIMEOUT:.0f} s"})
     return recs, time.perf_counter() - t0
 
@@ -89,21 +97,23 @@ def main(argv=None) -> int:
     ap.add_argument("--out", required=True, help="the sweep's JSONL")
     ap.add_argument("--jobs", type=int, default=8)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--skip", action="append", default=[], help="ARCH/SHAPE to leave out")
     args = ap.parse_args(argv)
     logs = Path(args.out + ".logs")
     logs.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    todo = cells()
+    todo = [(*c, m) for c in cells() if "/".join(c) not in args.skip for m in MESHES]
     with concurrent.futures.ThreadPoolExecutor(args.jobs) as pool:
         done = list(pool.map(lambda c: run(*c, logs, args.device), todo))
     recs = [r for rs, _ in done for r in rs]
     Path(args.out).write_text("".join(json.dumps(r) + "\n" for r in recs))
-    for (arch, shape), (_, s) in zip(todo, done):
-        print(f"{arch} {shape}: {s:.1f} s")
+    for (arch, shape, mesh), (_, s) in zip(todo, done):
+        print(f"{arch} {shape} {mesh}: {s:.1f} s")
     print(table(recs))
     failed = sum(not r["ok"] for r in recs)
-    print(f"{len(recs)} records, {failed} failed, {time.perf_counter() - t0:.1f} s; "
-          f"device {args.device}")
+    refused = sum(bool(r.get("refused")) for r in recs)
+    print(f"{len(recs)} records, {failed} failed, {refused} with ops torch 2.11 refuses, "
+          f"{time.perf_counter() - t0:.1f} s; device {args.device}; skipped {args.skip}")
     return 1 if failed else 0
 
 

@@ -46,6 +46,14 @@ and the redistribution's collectives.  DTensor also runs each op once more
 at its global shapes, on fake tensors, to learn the output's metadata
 (``ShardingPropagator._propagate_tensor_meta*``); those calls compute
 nothing on the rank, and the recorder passes them through unrecorded.
+
+The rank recorder also keeps, in ``Recording.refused``, every DTensor op
+that DTensor of torch 2.11 refuses, seen on any version: an op with an
+operand or result placed ``_StridedShard`` (a view that flattens a split
+dimension behind the first of the flattened ones makes one on later
+versions; 2.11 raises "Attempted to flatten multiple dimensions, with
+dimension … being sharded"), and a ``constant_pad_nd`` of a DTensor (2.11's
+rule raises ``IndexError``).  The dry run prints them with each cell.
 """
 from __future__ import annotations
 
@@ -132,7 +140,8 @@ class Recording:
     held them then: bytes by the op that made each storage ("arguments"
     for the call's own), taken when the peak last grew by 1%
     (``peak_by_op``), and then each live storage as (bytes, op, shape,
-    dtype) of the first tensor held on it (``peak_storages``)."""
+    dtype) of the first tensor held on it (``peak_storages``); and the
+    DTensor ops that torch 2.11 refuses, ``RefusedOp`` each (``refused``)."""
 
     ops: list = dataclasses.field(default_factory=list)
     routes: list = dataclasses.field(default_factory=list)
@@ -142,6 +151,18 @@ class Recording:
     arg_bytes: int = 0
     peak_by_op: dict = dataclasses.field(default_factory=dict)
     peak_storages: list = dataclasses.field(default_factory=list)
+    refused: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class RefusedOp:
+    """A DTensor op that DTensor of torch 2.11 refuses (see the module's
+    docstring): its name and each DTensor operand's and result's global
+    shape and placements (``"S(0)_S(0, 2)"``: one a mesh dim)."""
+
+    name: str
+    operands: list
+    results: list
 
 
 class _Recorder(TorchDispatchMode):
@@ -207,7 +228,9 @@ class _RankRecorder(TorchDispatchMode):
 
       * on a tensor subclass other than a fake tensor (a DTensor) —
         declined, so that the subclass's dispatch runs its local ops under
-        this mode;
+        this mode; a DTensor op is first called again with this mode
+        pushed, declined there, so that its results' placements are seen
+        (``_on_dtensors``);
       * on fake tensors of another fake mode — DTensor's sharding
         propagation (``ShardingPropagator._propagate_tensor_meta*``) runs
         the op at its global shapes under a mode of its own to learn the
@@ -228,6 +251,7 @@ class _RankRecorder(TorchDispatchMode):
         self.device_type = torch.device(device).type
         self.live: dict[int, tuple] = {}
         self.held = self.shown = 0
+        self.declining = False
 
     def hold(self, t: torch.Tensor, origin: str = "arguments") -> None:
         """Count ``t``'s storage, made by the op ``origin``, as live until it
@@ -260,7 +284,10 @@ class _RankRecorder(TorchDispatchMode):
 
         kwargs = kwargs or {}
         if any(not issubclass(t, self.fake) for t in types):
-            return NotImplemented
+            if self.declining:
+                self.declining = False
+                return NotImplemented
+            return self._on_dtensors(func, args, kwargs)
         ins = [t for t in _leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
         fakes = [t for t in ins if isinstance(t, self.fake)]
         if any(t.fake_mode is not self.fake_mode for t in fakes):
@@ -290,6 +317,40 @@ class _RankRecorder(TorchDispatchMode):
         for t in outs:
             self.hold(t, name)
         return out
+
+    def _on_dtensors(self, func, args, kwargs):
+        """A DTensor op: called with this mode pushed again, where its first
+        dispatch is declined (so DTensor's own dispatch runs its local ops
+        under this mode, as for an op declined at once), and kept in
+        ``refused`` where torch 2.11 refuses it.  An op on another subclass
+        is declined."""
+        from torch.distributed.tensor import DTensor
+
+        ins = [t for t in _leaves((args, kwargs)) if isinstance(t, DTensor)]
+        if not ins:
+            return NotImplemented
+        self.declining = True
+        try:
+            with self:
+                out = func(*args, **kwargs)
+        finally:
+            self.declining = False
+        outs = [t for t in _leaves(out) if isinstance(t, DTensor)]
+        name = func.overloadpacket.__name__
+        if name == "constant_pad_nd" or any(map(_strided, ins + outs)):
+            self.rec.refused.append(RefusedOp(name, [_placed(t) for t in ins],
+                                              [_placed(t) for t in outs]))
+        return out
+
+
+def _strided(t) -> bool:
+    """Whether the DTensor ``t`` has a ``_StridedShard`` placement."""
+    return any(type(pl).__name__ == "_StridedShard" for pl in t.placements)
+
+
+def _placed(t) -> tuple:
+    """(global shape, placements) of the DTensor ``t``."""
+    return tuple(t.shape), "".join(map(str, t.placements))
 
 
 @contextlib.contextmanager

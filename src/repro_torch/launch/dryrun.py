@@ -19,7 +19,10 @@ the mesh's.
 Success proves the distribution config is coherent: a sharding DTensor
 refuses, a collective the group lacks and a data-dependent read (a value
 the host would wait for) all fail the cell loudly, as a sharding mismatch
-or an unsupported collective fails the reference's compile.
+or an unsupported collective fails the reference's compile.  Each cell
+also lists the DTensor ops that DTensor of torch 2.11 would refuse
+(``refused``: a ``_StridedShard`` placement or a pad, see
+``analysis.trace``), which a later PyTorch runs.
 """
 from __future__ import annotations
 
@@ -78,6 +81,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, tc: TrainConfig | N
         "peak_storages": [[round(b / 1e9, 3), op, list(shape), str(dt).split(".")[-1]]
                           for b, op, shape, dt in sorted(recording.peak_storages,
                                                          key=lambda s: -s[0])[:8]],
+        # the ops torch 2.11 refuses: name, (shape, placements) of each
+        # DTensor operand and result
+        "refused": [[r.name, [[list(sh), pl] for sh, pl in r.operands],
+                     [[list(sh), pl] for sh, pl in r.results]] for r in recording.refused],
     }
     if verbose:
         print(f"[dryrun] {cell.label} mesh={rec['mesh']} device={device} "
@@ -95,6 +102,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, tc: TrainConfig | N
         print(f"  at the peak, GB by the op that made each storage: "
               f"{ {k: round(v / 1e9, 3) for k, v in rec['peak_by_op'].items()} }")
         print(f"  the largest storages then (GB, op, shape, dtype): {rec['peak_storages']}")
+        print(f"  ops that torch 2.11 refuses: {len(recording.refused)}")
+        for r in recording.refused:
+            print(f"    {r.name}: {r.operands} -> {r.results}")
     return rec
 
 

@@ -270,27 +270,62 @@ def attn_decode(p, h_t: torch.Tensor, cache: KVCache, pos: int, cfg: ModelConfig
     ``write_pos`` (default pos; a ring buffer passes pos % window), where
     the reference returns new arrays: at full width a copy of the cache per
     layer and token would move the whole cache every step.  Slot s is valid
-    iff s ≤ pos; only those slots are read (the rest carry zero weight)."""
+    iff s ≤ pos; only those slots are read (the rest carry zero weight).
+    On a mesh each rank attends over its own shard of the cache
+    (``_on_kv_cache``)."""
     B = h_t.shape[0]
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // Hkv
     if write_pos is None:
         write_pos = pos
     q, k, v = _qkv(p, h_t, cfg, sin_t, cos_t)                       # (B,1,·,Dh)
+    n = min(pos + 1, cache.k.shape[1])
+    scale = softmax_scale(Dh)
     if is_dtensor(cache.k):
         _write_shards(cache.k, 0, [write_pos], k.to(cache.k.dtype))
         _write_shards(cache.v, 0, [write_pos], v.to(cache.v.dtype))
+        o = _on_kv_cache(q, cache, n, scale)
     else:
         cache.k[:, write_pos] = k[:, 0].to(cache.k.dtype)
         cache.v[:, write_pos] = v[:, 0].to(cache.v.dtype)
-    n = min(pos + 1, cache.k.shape[1])
-    scale = softmax_scale(Dh)
-    qg = _reshape_aligned(q, 2, Hkv, (B, Hkv, G, Dh)).float()
-    logits = torch.einsum("bhgd,bshd->bhgs", qg, cache.k[:, :n].float()) * scale
-    o = torch.einsum("bhgs,bshd->bhgd", torch.softmax(logits, dim=-1),
-                     cache.v[:, :n].float())
+        qg = _reshape_aligned(q, 2, Hkv, (B, Hkv, G, Dh)).float()
+        logits = torch.einsum("bhgd,bshd->bhgs", qg, cache.k[:, :n].float()) * scale
+        o = torch.einsum("bhgs,bshd->bhgd", torch.softmax(logits, dim=-1),
+                         cache.v[:, :n].float())
     out = _reshape_aligned(o, 1, Hkv, (B, 1, H * Dh)).to(h_t.dtype) @ p["wo"]
     return out, cache
+
+
+def _on_kv_cache(q: torch.Tensor, cache: KVCache, n: int, scale: float) -> torch.Tensor:
+    """softmax(q·kᵀ·scale)·v over positions [0, n) of an exact cache on a
+    mesh (DTensors), as the reference's partitioned decode computes it: q
+    (B, 1, H, Dh) → o (B, Hkv, G, Dh) float32, a DTensor split by batch
+    rows and KV heads as the cache is.  Each rank reads its own shard of
+    the cache in place, its valid positions [lo, hi) ∩ [0, n) widened to
+    float32, with q's rows and heads cut to the same (all G query heads of
+    each local KV head).  Where the positions are split, each rank's
+    softmax·V over its own positions is combined with the others' by their
+    log-sum-exps (``lse_combine``); a rank with no valid position carries
+    weight 0, as the reference's NEG_INF mask gives it.  A split of the
+    head dim is gathered first."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dm = cache.k.device_mesh
+    keep, (k, v), ((b0, b1), (s0, s1), (h0, h1), _) = _cache_shards(cache)
+    B, Hkv, Dh = cache.k.shape[0], cache.k.shape[2], cache.k.shape[3]
+    G = q.shape[2] // Hkv
+    rows = [pl if pl == Shard(0) else Replicate() for pl in keep]
+    ql = q.redistribute(dm, rows).to_local()
+    qg = ql[:, 0, h0 * G:h1 * G].reshape(b1 - b0, h1 - h0, G, Dh).float()
+    m = max(0, min(s1, n) - s0)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k[:, :m].float()) * scale
+    o = torch.einsum("bhgs,bshd->bhgd", torch.softmax(logits, dim=-1), v[:, :m].float())
+    pos_dims = tuple(i for i, pl in enumerate(keep) if pl == Shard(1) and dm.mesh.shape[i] > 1)
+    if pos_dims:
+        o = lse_combine(o, torch.logsumexp(logits, dim=-1), dm, pos_dims)
+    pls = [Shard(0) if pl == Shard(0) else Shard(1) if pl == Shard(2) else Replicate()
+           for pl in keep]
+    return from_local(o, dm, pls, (B, Hkv, G, Dh))
 
 
 # --------------------------------------------------------------------------- #
@@ -368,20 +403,44 @@ class _SlotShard(NamedTuple):
         return np.where((s >= self.lo) & (s < self.hi), s - self.lo, self.hi - self.lo)
 
     def combine(self, o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
-        """Σ_r e^{lse_r − m} o_r / Σ_r e^{lse_r − m}, m = max_r lse_r, over
-        the ranks that split the slots: o (…, Dh) each rank's softmax·V over
-        its own slots, lse (…) its rows' log-sum-exps (float32)."""
-        from torch.distributed import _functional_collectives as fc
+        """The ranks' partials over their own slots joined (``lse_combine``)."""
+        return lse_combine(o, lse, self.device_mesh, self.dims)
 
-        m = lse
-        for d in self.dims:
-            m = fc.all_reduce(m, "max", (self.device_mesh, d))
-        w = torch.exp(lse - m)
-        num, den = o * w[..., None], w
-        for d in self.dims:
-            num = fc.all_reduce(num, "sum", (self.device_mesh, d))
-            den = fc.all_reduce(den, "sum", (self.device_mesh, d))
-        return num / den[..., None]
+
+def _cache_shards(cache) -> tuple:
+    """(placements, local shards, [lo, hi) of each dim of the first leaf)
+    of this rank's share of a cache whose leaves are DTensors alike in their
+    first three dims: each split of those dims kept where every leaf has
+    it, any other split gathered first."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    first = cache[0]
+    dm = first.device_mesh
+    keep = [pl if isinstance(pl, Shard) and pl.dim in (0, 1, 2)
+            and all(x.placements[i] == pl for x in cache) else Replicate()
+            for i, pl in enumerate(first.placements)]
+    return (keep, [x.redistribute(dm, keep).to_local() for x in cache],
+            local_box(first.shape, dm, keep))
+
+
+def lse_combine(o: torch.Tensor, lse: torch.Tensor, device_mesh, dims) -> torch.Tensor:
+    """Σ_r e^{lse_r − m} o_r / Σ_r e^{lse_r − m}, m = max_r lse_r, over the
+    ranks of the mesh dims ``dims`` of ``device_mesh``, which split the
+    keys (the exact cache's positions, the sketched cache's slots): o (…,
+    Dh) this rank's softmax·V over its own keys, lse (…) its rows'
+    log-sum-exps (float32).  A rank whose rows hold no key (lse −∞, o 0)
+    adds nothing; some rank must hold one of each row's keys."""
+    from torch.distributed import _functional_collectives as fc
+
+    m = lse
+    for d in dims:
+        m = fc.all_reduce(m, "max", (device_mesh, d))
+    w = torch.exp(lse - m)
+    num, den = o * w[..., None], w
+    for d in dims:
+        num = fc.all_reduce(num, "sum", (device_mesh, d))
+        den = fc.all_reduce(den, "sum", (device_mesh, d))
+    return num / den[..., None]
 
 
 def _on_sketch_cache(attend, q, k, v, cache: SketchCache) -> tuple[torch.Tensor, SketchCache]:
@@ -402,11 +461,8 @@ def _on_sketch_cache(attend, q, k, v, cache: SketchCache) -> tuple[torch.Tensor,
     from torch.distributed.tensor import Replicate, Shard
 
     dm = cache.k_sum.device_mesh
-    keep = [pl if isinstance(pl, Shard) and pl.dim in (0, 1, 2)
-            and all(x.placements[i] == pl for x in cache) else Replicate()
-            for i, pl in enumerate(cache.k_sum.placements)]
-    local = SketchCache(*(x.redistribute(dm, keep).to_local() for x in cache))
-    (b0, b1), (h0, h1), (s0, s1), _ = local_box(cache.k_sum.shape, dm, keep)
+    keep, local, ((b0, b1), (h0, h1), (s0, s1), _) = _cache_shards(cache)
+    local = SketchCache(*local)
     slot_dims = tuple(i for i, pl in enumerate(keep)
                       if pl == Shard(2) and dm.mesh.shape[i] > 1)
     rep = [Replicate()] * dm.ndim

@@ -8,7 +8,7 @@ import math
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
-from repro_torch.sharding import constrain, distribute_like, is_dtensor
+from repro_torch.sharding import constrain, distribute_like, is_dtensor, reduce_partial
 
 PARAM_DTYPE = torch.bfloat16
 
@@ -49,9 +49,15 @@ def embed_init(generator: torch.Generator, shape, dtype=PARAM_DTYPE) -> torch.Te
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with a zero-centred weight, y·(1 + w), in float32, cast back."""
+    """RMSNorm with a zero-centred weight, y·(1 + w), in float32, cast back.
+    On a mesh, x split along its last dim (the Mamba-2 gate's heads), the
+    mean of the squares is a partial sum, all-reduced as GSPMD reduces it:
+    DTensor left to itself reduce-scatters it along the sequence, and the
+    gradient that reaches the input projection then splits the sequence."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if is_dtensor(var):
+        var = reduce_partial(var)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + w.float())).to(x.dtype)
 

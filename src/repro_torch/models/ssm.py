@@ -10,6 +10,17 @@ sequential steps.  Every dtype cast is the reference's: the projections in
 the parameter dtype, the conv in the input's dtype with its SiLU in
 float32, dt, the decay, the SSD and the gate in float32, and the gated
 output back in the input's dtype before ``gate_norm``.
+
+On a mesh (DTensors) the parts that are local to a batch row and a head
+run on each rank's shards, as GSPMD partitions the reference's program:
+the conv's padding (``_pad_front``), the chunked SSD core on the rank's
+heads (``_ssd_on_shards``: the chunk and position dims whole, ``Bm`` and
+``Cm``, which every head shares, whole on each model rank, their scores
+summed over the model ranks' shares of N), and the
+decode's and the prefill's reads and scan of the state on the rank's shard
+of it (``_read_state``, ``_scan_on_shards``).  DTensor's own rules there
+flatten a split dimension behind the first of the flattened ones, or pad,
+which DTensor of torch 2.11 refuses (``analysis.trace``'s ``refused``).
 """
 from __future__ import annotations
 
@@ -21,6 +32,7 @@ import torch.nn.functional as Fn
 from repro_torch._util import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import PARAM_DTYPE, dense_init, rmsnorm
+from repro_torch.sharding import constrain, from_local, is_dtensor
 
 
 class SSMState(NamedTuple):
@@ -62,9 +74,11 @@ def init_mamba2(generator: torch.Generator, cfg: ModelConfig, dtype=PARAM_DTYPE)
 
 
 def _split_proj(p: dict, h: torch.Tensor, cfg: ModelConfig):
-    """h @ in_proj split into (z, xBC, dt)."""
+    """h @ in_proj split into (z, xBC, dt).  On a mesh the product's columns
+    are pinned on "model", as the weight's are: its gradient then reaches
+    the weight's product split so, not whole on every model rank."""
     d_inner, H, P, N = _dims(cfg)
-    zxbcdt = h @ p["in_proj"]
+    zxbcdt = constrain(h @ p["in_proj"], "dp", None, "tp", policy=cfg.sharding_policy)
     return torch.split(zxbcdt, [d_inner, d_inner + 2 * N, H], dim=-1)
 
 
@@ -73,11 +87,39 @@ def _causal_conv(p: dict, xBC: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     xBC: (B, L, Cch)."""
     W = cfg.ssm.conv_width
     L = xBC.shape[1]
-    pad = Fn.pad(xBC, (0, 0, W - 1, 0))
+    pad = _pad_front(xBC, W - 1)
     out = pad[:, 0:L, :] * p["conv_w"][0].to(xBC.dtype)
     for i in range(1, W):
         out = out + pad[:, i:i + L, :] * p["conv_w"][i].to(xBC.dtype)
     return Fn.silu((out + p["conv_b"].to(xBC.dtype)).float()).to(xBC.dtype)
+
+
+def _pad_front(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``Fn.pad(x, (0, 0, n, 0))``: x (B, L, C) with n zero positions before
+    its first.  A DTensor is padded on each rank's shard, its length whole
+    (a split of it, or a partial sum, made whole first)."""
+    if not is_dtensor(x):
+        return Fn.pad(x, (0, 0, n, 0))
+    from torch.distributed.tensor import Replicate, Shard
+
+    pls = [Replicate() if pl == Shard(1) or pl.is_partial() else pl for pl in x.placements]
+    if pls != list(x.placements):
+        x = x.redistribute(x.device_mesh, pls)
+    B, L, C = x.shape
+    return from_local(Fn.pad(x.to_local(), (0, 0, n, 0)), x.device_mesh, pls, (B, L + n, C))
+
+
+def _merge_heads(y: torch.Tensor, shape) -> torch.Tensor:
+    """y (…, H, P) reshaped to ``shape`` (…, H·P).  On a mesh a split of P is
+    gathered first: DTensor of torch 2.11 refuses to flatten a split
+    dimension behind the first of the flattened ones."""
+    if is_dtensor(y):
+        from torch.distributed.tensor import Replicate, Shard
+
+        pls = [Replicate() if pl == Shard(y.ndim - 1) else pl for pl in y.placements]
+        if pls != list(y.placements):
+            y = y.redistribute(y.device_mesh, pls)
+    return y.reshape(shape)
 
 
 def _gate_out(p: dict, y: torch.Tensor, z: torch.Tensor, dtype, cfg: ModelConfig):
@@ -103,7 +145,6 @@ def mamba2_forward(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         raise ValueError(f"mamba2_forward needs the length L = {L} to be a multiple of "
                          f"the chunk length {Q} (cfg.ssm.chunk); pad the sequence")
     nc = L // Q
-    f32 = torch.float32
 
     z, xBC, dt = _split_proj(p, h, cfg)
     xBC = _causal_conv(p, xBC, cfg)
@@ -114,18 +155,32 @@ def mamba2_forward(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
     # chunked SSD
     dA = (dt * A).reshape(B, nc, Q, H)                                # (B,c,q,H) f32
-    dA_cs = torch.cumsum(dA, dim=2)                                   # within-chunk cumsum
-    dA_sum = dA_cs[:, :, -1, :]                                       # (B,c,H)
     xdt = (x.float() * dt[..., None]).reshape(B, nc, Q, H, P)
     Bc = Bm.float().reshape(B, nc, Q, N)
     Cc = Cm.float().reshape(B, nc, Q, N)
+    if is_dtensor(dA):
+        y = _ssd_on_shards(dA, xdt, Bc, Cc, cfg)
+    else:
+        y = _ssd(dA, xdt, Bc, Cc, torch.einsum("bcin,bcjn->bcij", Cc, Bc))
+    y = y.reshape(B, L, H, P) + x.float() * p["D"][None, None, :, None]
+    return _gate_out(p, _merge_heads(y, (B, L, d_inner)), z, h.dtype, cfg)
+
+
+def _ssd(dA: torch.Tensor, xdt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
+         scores: torch.Tensor) -> torch.Tensor:
+    """The chunked SSD core, float32: dA (B, c, Q, H), xdt (B, c, Q, H, P),
+    Bc and Cc (B, c, Q, N) and the intra-chunk scores Cc·Bcᵀ (B, c, Q, Q)
+    → y_diag + y_off (B, c, Q, H, P)."""
+    B, nc, Q, H, P = xdt.shape
+    N = Bc.shape[-1]
+    dA_cs = torch.cumsum(dA, dim=2)                                   # within-chunk cumsum
+    dA_sum = dA_cs[:, :, -1, :]                                       # (B,c,H)
 
     # intra-chunk (diagonal blocks): Y_ii, first (scores·decay) over (i, j, H),
     # then the product over j
     seg = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]           # (B,c,i,j,H)
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=h.device))
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dA.device))
     decay = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
-    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)                  # (B,c,i,j)
     sd = (scores[..., None] * decay).permute(0, 1, 4, 2, 3)           # (B,c,H,i,j)
     y_diag = torch.matmul(sd, xdt.permute(0, 1, 3, 2, 4))             # (B,c,H,i,P)
     y_diag = y_diag.permute(0, 1, 3, 2, 4)                            # (B,c,i,H,P)
@@ -137,7 +192,7 @@ def mamba2_forward(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     states = torch.matmul(xd.transpose(2, 3), Bc).reshape(B, nc, H, P, N)
 
     # inter-chunk scan: the state entering each chunk
-    s = torch.zeros((B, H, P, N), dtype=f32, device=h.device)
+    s = torch.zeros((B, H, P, N), dtype=torch.float32, device=dA.device)
     prevs = []
     for c in range(nc):
         prevs.append(s)
@@ -147,8 +202,33 @@ def mamba2_forward(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # off-diagonal: first over n, then the decay
     y_off = torch.matmul(Cc, s_prevs.reshape(B, nc, H * P, N).transpose(2, 3))
     y_off = y_off.reshape(B, nc, Q, H, P) * torch.exp(dA_cs)[..., None]
-    y = (y_diag + y_off).reshape(B, L, H, P) + x.float() * p["D"][None, None, :, None]
-    return _gate_out(p, y.reshape(B, L, d_inner), z, h.dtype, cfg)
+    return y_diag + y_off
+
+
+def _ssd_on_shards(dA, xdt, Bc, Cc, cfg: ModelConfig) -> torch.Tensor:
+    """``_ssd`` of DTensors on each rank's shards, as the reference's
+    partitioned program computes it: dA and xdt pinned with the batch on
+    the data axes and the heads on "model" (where it divides them), Bc and
+    Cc with the batch alone, whole on each model rank (every head reads
+    them); the chunk and position dims whole.  The scores Cc·Bcᵀ, which no
+    head splits, contract each model rank's share of N and are summed over
+    "model" (the reference's per-partition product).  The core runs on the
+    local shards, and its result (made contiguous: the sum takes y_diag's
+    permuted strides) is a DTensor placed as xdt.  A rank's gradient of Bc,
+    Cc and the scores covers its own heads: a partial sum over the mesh
+    dims that split them, which the constraints' gradients reduce."""
+    from torch.distributed.tensor import Partial, Shard
+
+    pol = cfg.sharding_policy
+    scores = torch.einsum("bcin,bcjn->bcij",
+                          *(constrain(t, "dp", None, None, "tp", policy=pol) for t in (Cc, Bc)))
+    dA = constrain(dA, "dp", None, None, "tp", policy=pol)
+    xdt = constrain(xdt, "dp", None, None, "tp", None, policy=pol)
+    Bc, Cc, scores = (constrain(t, "dp", None, None, None, policy=pol) for t in (Bc, Cc, scores))
+    shared = [Partial() if hp == Shard(3) else pl for hp, pl in zip(dA.placements, Bc.placements)]
+    y = _ssd(dA.to_local(), xdt.to_local(), *(t.to_local(grad_placements=shared)
+                                              for t in (Bc, Cc, scores)))
+    return from_local(y.contiguous(), xdt.device_mesh, xdt.placements, xdt.shape)
 
 
 # --------------------------------------------------------------------------- #
@@ -186,9 +266,47 @@ def mamba2_decode(p: dict, h_t: torch.Tensor, state: SSMState, cfg: ModelConfig
     dA = torch.exp(dtv * A)                                           # (B,H)
     s = state.ssm * dA[:, :, None, None] + (
         (dtv[:, :, None] * x)[..., None] * Bv[:, None, None, :])
-    y = torch.einsum("bn,bhpn->bhp", Cv, s) + x * p["D"][None, :, None]
-    out = _gate_out(p, y.reshape(B, 1, d_inner), z, h_t.dtype, cfg)
-    return out, SSMState(new_conv, s)
+    y = _read_state(Cv, s) + x * p["D"][None, :, None]
+    out = _gate_out(p, _merge_heads(y, (B, 1, d_inner)), z, h_t.dtype, cfg)
+    return out, _placed_as(SSMState(new_conv, s), state)
+
+
+def _placed_as(new: SSMState, old: SSMState) -> SSMState:
+    """``new`` with each DTensor leaf placed as ``old``'s (a decode cache
+    keeps its layout from step to step)."""
+    return SSMState(*(n.redistribute(o.device_mesh, o.placements)
+                      if is_dtensor(n) and n.placements != o.placements else n
+                      for n, o in zip(new, old)))
+
+
+def _state_box(s: torch.Tensor) -> list:
+    """The placements that keep a state DTensor s (B, H, P, N) split as it
+    is by batch rows, heads and head dims, and whole along N."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [pl if isinstance(pl, Shard) and pl.dim < 3 else Replicate() for pl in s.placements]
+
+
+def _cut(x: torch.Tensor, box: list, dims: tuple) -> torch.Tensor:
+    """The local shard of the DTensor ``x`` that covers the batch rows (and
+    heads, head dims) of a state shard placed by ``box``: ``dims`` maps
+    the state's dims 0, 1, 2 to x's, None where x has no such dim."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pls = [Shard(dims[pl.dim]) if isinstance(pl, Shard) and dims[pl.dim] is not None
+           else Replicate() for pl in box]
+    return x.redistribute(x.device_mesh, pls).to_local()
+
+
+def _read_state(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """C·h: ``einsum("bn,bhpn->bhp", c, s)``; on a mesh on each rank's shard
+    of the state (its batch rows, heads and head dims, N whole on the rank),
+    the result split as the state is."""
+    if not is_dtensor(s):
+        return torch.einsum("bn,bhpn->bhp", c, s)
+    box = _state_box(s)
+    y = torch.einsum("bn,bhpn->bhp", _cut(c, box, (0, None, None)), _cut(s, box, (0, 1, 2)))
+    return from_local(y, s.device_mesh, box, s.shape[:3])
 
 
 def mamba2_prefill(p: dict, h: torch.Tensor, state: SSMState, cfg: ModelConfig
@@ -218,16 +336,46 @@ def mamba2_prefill(p: dict, h: torch.Tensor, state: SSMState, cfg: ModelConfig
     x = x.reshape(B, L, H, P)
     dtv = Fn.softplus(dt.float() + p["dt_bias"])                      # (B,L,H)
     dA = torch.exp(dtv * -torch.exp(p["A_log"].float()))              # (B,L,H)
+    xdt = dtv[..., None] * x
+    if is_dtensor(state.ssm):
+        y, s = _scan_on_shards(dA, xdt, Bv, Cv, state.ssm)
+    else:
+        y, s = _scan(dA, xdt, Bv, Cv, state.ssm)
+    y = y + x * p["D"][None, None, :, None]
+    out = _gate_out(p, _merge_heads(y, (B, L, d_inner)), z, h.dtype, cfg)
+    return out, _placed_as(SSMState(new_conv, s), state)
+
+
+def _scan(dA, xdt, Bv, Cv, s) -> tuple[torch.Tensor, torch.Tensor]:
+    """The state's recurrence token by token: dA (B, L, H), xdt (B, L, H, P),
+    Bv and Cv (B, L, N), s (B, H, P, N) → (the C·h of every token (B, L, H,
+    P), the last state)."""
+    B, L, H, P = xdt.shape
+    N = s.shape[-1]
     # per-token views, made once: (B,H,1,1), (B,H,P,1), (B,1,1,N), (B,N,1)
     dA_t = dA[..., None, None].unbind(1)
-    xdt_t = (dtv[..., None] * x)[..., None].unbind(1)
+    xdt_t = xdt[..., None].unbind(1)
     B_t = Bv[:, :, None, None, :].unbind(1)
     C_t = Cv[..., None].unbind(1)
-    s = state.ssm
     ys = []
     for t in range(L):
         s = torch.addcmul(s * dA_t[t], xdt_t[t], B_t[t])
         ys.append(torch.matmul(s.view(B, H * P, N), C_t[t]))
-    y = torch.stack(ys, dim=1).view(B, L, H, P) + x * p["D"][None, None, :, None]
-    out = _gate_out(p, y.reshape(B, L, d_inner), z, h.dtype, cfg)
-    return out, SSMState(new_conv, s)
+    return torch.stack(ys, dim=1).view(B, L, H, P), s
+
+
+def _scan_on_shards(dA, xdt, Bv, Cv, s) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_scan`` of DTensors on each rank's shard of the state s (its batch
+    rows, heads and head dims; N whole on the rank), the token inputs cut
+    to the same: (the C·h of every token, split as the state is, the last
+    state, placed as s)."""
+    from torch.distributed.tensor import Shard
+
+    box = _state_box(s)
+    y, last = _scan(_cut(dA, box, (0, 2, None)), _cut(xdt, box, (0, 2, 3)),
+                    _cut(Bv, box, (0, None, None)), _cut(Cv, box, (0, None, None)),
+                    _cut(s, box, (0, 1, 2)))
+    dm = s.device_mesh
+    y_pls = [Shard((0, 2, 3)[pl.dim]) if isinstance(pl, Shard) else pl for pl in box]
+    return (from_local(y, dm, y_pls, xdt.shape),
+            from_local(last, dm, box, s.shape).redistribute(dm, s.placements))

@@ -500,6 +500,21 @@ def constrain(x: torch.Tensor, *entries, policy: str = "default") -> torch.Tenso
     return x if list(x.placements) == want else x.redistribute(m.device_mesh, want)
 
 
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """The DTensor ``x`` with its partial sums (or means) reduced, whole on
+    the mesh dims that held them, as GSPMD all-reduces a reduction over a
+    split dimension; its gradient placed the same (a partial's as
+    replicated).  ``x`` itself where nothing is partial."""
+    from torch.distributed.tensor import Replicate
+
+    want = [Replicate() if pl.is_partial() else pl for pl in x.placements]
+    if want == list(x.placements):
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Constrain.apply(x, x.device_mesh, want, want)
+    return x.redistribute(x.device_mesh, want)
+
+
 def pin_grad(x: torch.Tensor) -> torch.Tensor:
     """``x`` as it is, its gradient redistributed in the backward to ``x``'s
     own placements, a partial sum's as replicated (the identity off a mesh

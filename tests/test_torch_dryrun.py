@@ -26,7 +26,13 @@ reference's ``repro.launch``, on the CPU.
   scores in the backward, as the reference's ``jax.checkpoint`` does.  So
   do those of a reduced xlstm-125m training step, whose "dp_only" policy
   splits the batch over both axes: each rank's loss covers its own rows,
-  in one microbatch and in four (each placed as the batch).
+  in one microbatch and in four (each placed as the batch).  Reduced
+  zamba2-7b's exact decode equals the reference's, its training step the
+  reference's plus the logits and less four reductions of broadcast
+  products in the SSD's backward that the compiled reference counts as
+  dots (``_counted_gap``).
+- None of those cells, nor the slot-split prefill, runs a DTensor op that
+  DTensor of torch 2.11 refuses (``Recording.refused``).
 - A sketched prefill into a cache split on its slots over both axes: the
   per-rank FLOPs equal the reference's compiled per-partition FLOPs, a
   quarter of the slot-wide products a rank.
@@ -98,7 +104,8 @@ REDUCED_ARCHS = ("stablelm-3b", "moonshot-v1-16b-a3b")
 # is its own rows'), in one microbatch as the dry run's cells and in four,
 # each microbatch placed as the batch
 REDUCED_CELLS = [(a, k) for a in REDUCED_ARCHS for k in REDUCED if k != "train-micro"] + [
-    ("xlstm-125m", "train"), ("xlstm-125m", "train-micro")]
+    ("xlstm-125m", "train"), ("xlstm-125m", "train-micro"), ("zamba2-7b", "train"),
+    ("zamba2-7b", "decode")]
 # a sketched prefill of one attention layer into a cache split on its slots
 # over both axes: (arch, batch, tokens, chunk)
 PREFILL_SLOTS = ("stablelm-3b", 1, 48, 16)
@@ -278,34 +285,78 @@ def _reduced_cell(name: str, key: str, mesh):
 def _counted_gap(rec, cfg, key: str) -> float:
     """The port's per-rank FLOPs less the reference's per-partition FLOPs,
     counted from the reduced cell ``key`` (see the module docstring): in
-    training the loss chunks' forward logits, zero elsewhere."""
-    if REDUCED[key].kind != "train":
+    training the loss chunks' forward logits, less, for each Mamba-2 layer
+    and microbatch, the reductions of broadcast products in the backward of
+    the SSD's three-operand einsums that the compiled reference takes as
+    dots at this size and the eager port as multiplies and sums (over P,
+    over the rank's heads twice, over N: 2·B·c·Q·H·(P + Q + 2N), B the
+    rank's rows, c chunks of Q positions, H the rank's heads); zero
+    elsewhere."""
+    shape = REDUCED[key]
+    if shape.kind != "train":
         return 0.0
     # each loss chunk's logits twice (the forward, its recompute), the
     # head's (…, V) products
     logits = sum(ev.flops for ev in rec.ops
                  if ev.name == "mm" and ev.result.endswith(f",{cfg.vocab_size}]"))
-    return logits / 2
+    layers = cfg.pattern.count("mamba2") * cfg.n_superblocks
+    if not layers:
+        return logits / 2
+    s = cfg.ssm
+    n_micro = 1 if cfg.sharding_policy == "dp_only" and key == "train" else 4
+    B, Q = shape.global_batch // n_micro // 2, min(s.chunk, shape.seq_len)
+    H = s.expand * cfg.d_model // s.head_dim // 2
+    ssd = 2 * B * (shape.seq_len // Q) * Q * H * (s.head_dim + Q + 2 * s.d_state)
+    return logits / 2 - layers * n_micro * ssd
 
 
-def test_reduced_cells_per_rank_flops_match_the_reference(reference):
+@pytest.fixture(scope="module")
+def reduced_recordings() -> dict:
+    """Rank 0's recording of every ``REDUCED_CELLS`` cell on the (2, 2)
+    group, by "arch/key"."""
     from repro_torch.sharding import make_mesh
 
-    got = {}
+    recs = {}
     with fake_group(4):
         mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
         for name, key in REDUCED_CELLS:
             cell = _reduced_cell(name, key, mesh)
             with mesh:
-                rec = record_rank(cell.fn, *cell.args, fake_mode=cell.fake_mode,
-                                  device="cpu")
-            got[f"{name}/{key}"] = (analyze(rec).flops,
-                                    _counted_gap(rec, reduced(ARCHS[name]), key))
+                recs[f"{name}/{key}"] = record_rank(cell.fn, *cell.args,
+                                                    fake_mode=cell.fake_mode, device="cpu")
+    return recs
+
+
+def test_reduced_cells_per_rank_flops_match_the_reference(reference, reduced_recordings):
+    got = {}
+    for name, key in REDUCED_CELLS:
+        rec = reduced_recordings[f"{name}/{key}"]
+        got[f"{name}/{key}"] = (analyze(rec).flops, _counted_gap(rec, reduced(ARCHS[name]), key))
     assert set(got) == set(reference["cells"])
     for cell, want in reference["cells"].items():
         flops, gap = got[cell]
         assert flops == want + gap, (cell, flops, want, gap)
         assert (gap > 0) == (REDUCED[cell.split("/")[1]].kind == "train"), (cell, gap)
+
+
+def test_reduced_cells_run_no_op_that_torch_2_11_refuses(reduced_recordings):
+    """Every reduced cell and the slot-split sketched prefill run no DTensor
+    op that DTensor of torch 2.11 refuses (``Recording.refused``), which
+    later versions run: a view that flattens a split dimension behind the
+    first of the flattened ones (torch 2.11: "RuntimeError: ('Attempted to
+    flatten multiple dimensions, with dimension 1 being sharded. ', …)",
+    then "Sharding propagation failed for aten.view.default(…)"; torch
+    2.13 places the result ``_StridedShard``), an op on such a placement,
+    and a ``constant_pad_nd`` of a DTensor (torch 2.11's rule raises
+    ``IndexError``).  The exact decode with its positions split on "model"
+    and zamba2-7b's Mamba-2 conv and SSD ran such ops before they ran on
+    each rank's shards."""
+    refused = {cell: [(r.name, r.operands, r.results) for r in rec.refused[:3]]
+               for cell, rec in reduced_recordings.items() if rec.refused}
+    assert set(reduced_recordings) == {f"{a}/{k}" for a, k in REDUCED_CELLS}
+    assert not refused, refused
+    rec, _ = _slot_split_prefill()
+    assert rec.refused == [], rec.refused[:3]
 
 
 def test_training_on_a_mesh_holds_a_rank_share_of_the_loss_logits():
@@ -339,6 +390,27 @@ def test_slot_split_sketched_prefill_computes_a_rank_share_of_the_slot_products(
     d_slots), counted from the shapes: every rank computes the projections
     and the chunk's (c, c) scores whole, and the slot-wide products on its
     d/4 slots."""
+    name, B, L, c = PREFILL_SLOTS
+    cfg = reduced(ARCHS[name])
+    sa, H, Dh = cfg.sketch_attn, cfg.n_heads, cfg.head_dim
+    rec, one = _slot_split_prefill()
+    _, new = rec.result
+    assert [x.to_local().shape[2] for x in new] == [sa.d_slots // 4] * 3
+
+    def slot_wide(d):
+        return sum(2 * B * H * n * (2 * d * Dh + 2 * n * d)
+                   for n in (min(c, L - t0) for t0 in range(0, L, c)))
+
+    want = reference["prefill_slots"]
+    assert one == want["one"]
+    assert rec.flops == want["split"] == one - slot_wide(sa.d_slots) + slot_wide(
+        sa.d_slots // 4), (rec.flops, want, slot_wide(sa.d_slots))
+
+
+def _slot_split_prefill():
+    """``PREFILL_SLOTS``' sketched prefill of one attention layer into a
+    cache split on its slots over both axes, recorded as rank 0 of the
+    (2, 2) group, and one process's FLOPs: (the recording, the FLOPs)."""
     from repro_torch.analysis.trace import record
     from repro_torch.core.sketched_attention import decode_slot_table
     from repro_torch.models import attention as att
@@ -348,7 +420,7 @@ def test_slot_split_sketched_prefill_computes_a_rank_share_of_the_slot_products(
 
     name, B, L, c = PREFILL_SLOTS
     cfg = reduced(ARCHS[name])
-    sa, H, Dh = cfg.sketch_attn, cfg.n_heads, cfg.head_dim
+    sa, Dh = cfg.sketch_attn, cfg.head_dim
     table = decode_slot_table(0, L, sa.d_slots, sa.m_r)
     f32 = torch.float32
 
@@ -371,17 +443,7 @@ def test_slot_split_sketched_prefill_computes_a_rank_share_of_the_slot_products(
                                         fm) for x in cache))
         with mesh:
             rec = record_rank(prefill, pf, hf, cache, fake_mode=fm, device="cpu")
-    _, new = rec.result
-    assert [x.to_local().shape[2] for x in new] == [sa.d_slots // 4] * 3
-
-    def slot_wide(d):
-        return sum(2 * B * H * n * (2 * d * Dh + 2 * n * d)
-                   for n in (min(c, L - t0) for t0 in range(0, L, c)))
-
-    want = reference["prefill_slots"]
-    assert one == want["one"]
-    assert rec.flops == want["split"] == one - slot_wide(sa.d_slots) + slot_wide(
-        sa.d_slots // 4), (rec.flops, want, slot_wide(sa.d_slots))
+    return rec, one
 
 
 def _train_peak(cfg, n_sb: int):

@@ -16,17 +16,20 @@ They write whole (gathered) results and digests; this process compares.
   (``moe_forward_a2a_plain``) against the same reference in one process, at
   the same tolerances; with nothing dropped the a2a path equals
   ``moe_forward_local`` (outputs 1e-5, expert gradients 1e-3).
-- Reduced stablelm-3b and moonshot-v1-16b-a3b (float32): loss and gradients
+- Reduced stablelm-3b, moonshot-v1-16b-a3b and zamba2-7b (float32; zamba2's
+  Mamba-2 conv and chunked SSD on each rank's shards): loss and gradients
   on the mesh against one process (moonshot's with ``moe_forward`` swapped
   for the plain version where the mesh takes the a2a path): the
   loss at 1e-6 relative; each gradient leaf at 1e-5 of its largest entry
   (float32 sums in another order; the expert weights' gradients, rounded to
   bfloat16 where the a2a path reduces them, at one bfloat16 step, 2⁻⁸).
-- Serving on the mesh (reduced stablelm-3b, its 3-KV-head variant and
-  moonshot-v1-16b-a3b, float32, exact and sketched caches): a
+- Serving on the mesh (reduced stablelm-3b, its 3-KV-head variant,
+  moonshot-v1-16b-a3b and zamba2-7b, float32, exact and sketched caches): a
   ``prefill_with_cache`` of the batch and one ``decode_step``, the cache
   placed by ``cache_shardings`` (the batch on data, the positions or the
-  slots on model), and the sketched cache also split by batch rows alone,
+  slots on model, a Mamba-2 state's channels or head dims; the exact
+  decode attends over each rank's positions, the partials combined by
+  their log-sum-exps), and the sketched cache also split by batch rows alone,
   by slots alone over both axes (each rank's decode attends over its own
   slots, the partials combined by their log-sum-exps) and by KV heads
   alone (unevenly where there are 3), against one process: both steps'
@@ -52,6 +55,10 @@ They write whole (gathered) results and digests; this process compares.
   state bit for bit.  The shards refuse to restore into whole tensors (a
   data-mesh state), and a checkpoint of whole tensors into the (2, 2) state.
 - ``make_production_mesh`` refuses four ranks, naming the count.
+- The shared log-sum-exp combine (``attention.lse_combine``) over both
+  axes, each rank holding a quarter of the keys and one rank none that is
+  valid: finite, and the whole softmax's output at 1e-6 of its largest
+  entry, bitwise equal on the ranks.
 """
 from __future__ import annotations
 
@@ -93,12 +100,13 @@ MOE = {"nodrop": (MoECfg(n_experts=8, top_k=2, d_ff_expert=16, capacity_factor=6
 MODELS = {"stablelm-3b": reduced(ARCHS["stablelm-3b"]),
           "moonshot-v1-16b-a3b": reduced(ARCHS["moonshot-v1-16b-a3b"]),
           "stablelm-3b-3kv": reduced(ARCHS["stablelm-3b"]).scaled(n_heads=6, n_kv_heads=3),
-          "xlstm-125m": reduced(ARCHS["xlstm-125m"])}
+          "xlstm-125m": reduced(ARCHS["xlstm-125m"]),
+          "zamba2-7b": reduced(ARCHS["zamba2-7b"])}
 ARCH_NAMES = tuple(MODELS)
 BATCH, SEQ = 4, 16
 # serving: the prompt is SEQ tokens, the exact cache holds SERVE_LEN positions
 # (split over the model axis), and one token is decoded at position SEQ
-SERVE_ARCHS = ("stablelm-3b", "stablelm-3b-3kv", "moonshot-v1-16b-a3b")
+SERVE_ARCHS = ("stablelm-3b", "stablelm-3b-3kv", "moonshot-v1-16b-a3b", "zamba2-7b")
 # the sketched cache's layouts beyond cache_shardings' (the batch on data,
 # the slots on model): split by batch rows alone, by slots alone over both
 # axes (long_500k's batch of 1: each rank attends over its slots and the
@@ -109,6 +117,12 @@ SKETCH_LAYOUTS = {"sketched-batch": (("data", "model"), None, None, None),
                   "sketched-slots": (None, None, ("data", "model"), None),
                   "sketched-heads": (None, "model", None, None)}
 SERVE_CACHES = ("exact", "sketched", *SKETCH_LAYOUTS)
+# the caches each model serves from: zamba2-7b's from cache_shardings'
+# layouts alone (its attention's inputs come through the Mamba-2 layers, whose
+# float32 sums on the mesh differ from one process's in the last bits, so
+# the extra layouts' bitwise folds do not apply)
+SERVE_CASES = [(a, k) for a in SERVE_ARCHS
+               for k in (SERVE_CACHES[:2] if a == "zamba2-7b" else SERVE_CACHES)]
 SERVE_LEN = 32
 # wide weights and a tiny batch, so that DTensor moves activations, not weights
 WIDE = reduced(ARCHS["stablelm-3b"]).scaled(d_model=512, n_heads=8, n_kv_heads=8,
@@ -119,6 +133,25 @@ EXPERT_NAMES = ("wi_gate", "wi_up", "wo")
 # (under "dp_only", xlstm-125m's, split over both axes)
 MICRO_ARCHS = ("stablelm-3b", "xlstm-125m")
 MICRO_TC = TrainConfig(n_micro=2, q_chunk=8)
+# the log-sum-exp combine: (batch, heads, keys, valid keys, head dim), the
+# keys split in four over both axes; the last rank's are all past the
+# valid ones
+LSE_SHAPE = (2, 3, 24, 18, 8)
+
+
+def _lse_case():
+    """(q (B, H, Dh), k and v (B, K, Dh)) from a numpy seed."""
+    B, H, K, _, Dh = LSE_SHAPE
+    rng = np.random.default_rng(11)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 for s in ((B, H, Dh), (B, K, Dh), (B, K, Dh)))
+
+
+def _attend(q, k, v):
+    """(softmax(q kᵀ)·v, the rows' log-sum-exps) over the keys given."""
+    logits = torch.einsum("bhd,bkd->bhk", q, k)
+    o = torch.einsum("bhk,bkd->bhd", torch.softmax(logits, dim=-1), v)
+    return o, torch.logsumexp(logits, dim=-1)
 
 
 def _moe_inputs(case: str) -> dict:
@@ -254,6 +287,19 @@ def _worker(rank: str, store: str, base: str) -> int:
     try:
         mesh = make_debug_mesh(*SHAPE, device="cpu")
         report["mesh"] = {k: int(v) for k, v in mesh.shape.items()}
+        # the shared log-sum-exp combine: this rank's quarter of the keys,
+        # the valid ones of it (none on the last rank)
+        from repro_torch.models.attention import lse_combine
+
+        q, k, v = _lse_case()
+        n, part = LSE_SHAPE[3], LSE_SHAPE[2] // WORLD
+        lo, hi = rank * part, min(rank * part + part, LSE_SHAPE[3])
+        o, lse = _attend(q, k[:, lo:max(lo, hi)], v[:, lo:max(lo, hi)])
+        o = lse_combine(o, lse, mesh.device_mesh, (0, 1))
+        want, _ = _attend(q, k[:, :n], v[:, :n])
+        report["lse"] = {"empty": hi <= lo, "finite": bool(torch.isfinite(o).all()),
+                         "err": float((o - want).abs().max() / want.abs().max())}
+        report["digests"]["lse"] = _digest(o)
         # the expert-parallel MoE
         for case, (cfg, _) in MOE.items():
             p, h = _moe_tree(_moe_inputs(case))
@@ -344,13 +390,20 @@ def _worker(rank: str, store: str, base: str) -> int:
 
                 return tree_map(one, cache)
 
-            for kind in SERVE_CACHES:
+            for kind in [k for a, k in SERVE_CASES if a == arch]:
                 layout = SKETCH_LAYOUTS.get(kind)
+                placed = []
+
+                def placing(c, layout=layout):
+                    c = place(c, layout)
+                    placed.extend(str(x.placements) for x in tree_leaves(c))
+                    return c
+
                 with mesh:
-                    vals = _serve(params, cfg, tok, nxt, kind,
-                                  lambda c, layout=layout: place(c, layout))
+                    vals = _serve(params, cfg, tok, nxt, kind, placing)
                 cache_pl = [str(v.placements) for k, v in vals.items() if k.startswith("cache")]
                 report[f"{arch}_{kind}_placements"] = cache_pl
+                report[f"{arch}_{kind}_placed"] = placed
                 for k, v in vals.items():
                     whole = sh.full(v).detach()
                     out[f"{arch}_{kind}_{k}"] = whole.numpy()
@@ -621,8 +674,7 @@ def test_partial_products_before_a_reshape_train_on_the_mesh(ranks):
         assert _max_err(got[f"wide_g{i}"], g.numpy()) <= 1e-5 * scale, (name,)
 
 
-@pytest.mark.parametrize("kind", SERVE_CACHES)
-@pytest.mark.parametrize("arch", SERVE_ARCHS)
+@pytest.mark.parametrize("arch,kind", SERVE_CASES, ids=[f"{a}-{k}" for a, k in SERVE_CASES])
 def test_serving_on_the_mesh_equals_one_process(ranks, arch, kind):
     _, reports, got, _ = ranks
     cfg = MODELS[arch]
@@ -647,8 +699,15 @@ def test_serving_on_the_mesh_equals_one_process(ranks, arch, kind):
              "sketched-batch": "(Shard(dim=0), Shard(dim=0))",
              "sketched-slots": "(Shard(dim=2), Shard(dim=2))",
              "sketched-heads": "(Replicate(), Shard(dim=1))"}[kind]
+    want = [split] * (2 if kind == "exact" else 3)
+    if cfg.family == "hybrid":
+        # two Mamba-2 states (the conv window, the SSM state) before the
+        # shared attention's cache: cache_shardings splits the window's
+        # channels and the state's head dims (its largest dims) on model
+        ssm = "(Shard(dim=0), Shard(dim=2))" if kind == "exact" else split
+        want = [ssm] * 4 + want
     for r in reports:
-        assert r[f"{arch}_{kind}_placements"] == [split] * (2 if kind == "exact" else 3)
+        assert r[f"{arch}_{kind}_placements"] == r[f"{arch}_{kind}_placed"] == want
 
 
 def _leaf_names(tree: dict, prefix: str = "") -> list[str]:
@@ -800,6 +859,14 @@ def test_a_checkpoint_restores_only_on_its_own_mesh(ranks, direction):
     saved, target = _REFUSALS[direction]
     for r in reports:
         assert saved in r[direction] and target in r[direction], r[direction]
+
+
+def test_lse_combine_with_an_empty_shard_equals_the_whole_softmax(ranks):
+    _, reports, _, _ = ranks
+    assert [r["lse"]["empty"] for r in reports] == [False] * (WORLD - 1) + [True]
+    for r in reports:
+        assert r["lse"]["finite"] and r["lse"]["err"] <= 1e-6, r["lse"]
+        assert r["digests"]["lse"] == reports[0]["digests"]["lse"]
 
 
 def test_production_mesh_refuses_four_ranks(ranks):
