@@ -624,13 +624,34 @@ def sector_rates(torch, KN, K, samples=(1024, 64), seed: int = 11) -> dict:
     return out
 
 
+def launch_floor(torch, KN) -> tuple[float, float | None]:
+    """The least a kernel launch costs, from ``scripts/sector_probe.cu``'s
+    empty kernel (one block of one warp) launched through ctypes as the
+    kernel wrappers launch theirs: (ms, device ms) of one launch, ``timed``:
+    the wall time a launch takes back to back (the host's issue cost), and
+    the device's time for the empty kernel."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(KN.build_source(Path(__file__).resolve().parent / PROBE, {})))
+    lib.repro_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.repro_empty_launch.restype = ctypes.c_int
+
+    def run():
+        err = lib.repro_empty_launch(torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the empty kernel failed with CUDA error {err}")
+
+    return timed(torch, run)
+
+
 def sector_bound(idx, R: int, isz: int, other_bytes: float, rates: dict) -> dict:
-    """The column gather's floor in sectors: the distinct 32-byte sectors of
+    """The column gather's bound in sectors: the distinct 32-byte sectors of
     the sampled columns a row (``isz``-byte elements, rows aligned to 32
     bytes), R times, plus ``other_bytes`` (idx, coef, Cin, outputs), at
-    3.35 TB/s (``sector_bound_ms``) and at the card's measured rate for
+    3.35 TB/s (``sector_bound_ms``) and at the sector probe's rate for
     random sectors (``sector_rate_ms``: the faster of ``sector_rates``'
-    unsorted and sorted element reads, at the sample count nearest m·d)."""
+    unsorted and sorted element reads, at the sample count nearest m·d; a
+    reference, no floor: the register gather passes it)."""
     import torch
 
     sectors = int(torch.unique(idx.reshape(-1).long() // (32 // isz)).numel())
@@ -2908,12 +2929,17 @@ def main() -> int:
     lms, ldms = timed(torch, lambda: torch.sparse.mm(St, Cb))
     print(f"  torch.sparse.mm(Sᵀ, C): device {ldms} ms per call")
     b, by = bound_ms(m * d * d * 4 + m * d * 8 + d * d * 4, 2 * m * d * d)
+    fms, fdms = launch_floor(torch, KN)
+    print(f"  launch floor (scripts/sector_probe.cu's empty kernel through ctypes): one "
+          f"launch {fms:.4f} ms wall, back to back; device {fdms} ms; accum_apply_left "
+          f"{ms:.4f} ms (device {dms}) against its byte bound {b:.5f} ms")
     # one fixed geometry (one block per output row), not autotuned: the
     # reference does not autotune accum_apply_left either
     rows["accum_apply_left"] = dict(replaces=f"{TPU}:229", max_abs_err=ea,
                                     max_rel_err=er, ms=ms, device_ms=dms,
                                     plain_ms=pms, bound_ms=b, bound_by=by,
                                     library_ms=lms, library_device_ms=ldms,
+                                    launch_floor_ms=fms, launch_floor_device_ms=fdms,
                                     geometry_by="fixed")
     out = KN.accum_apply_left(Cb.bfloat16(), idx, cf)
     ea, er, ok = close(out, ref.sketch_left_ref(idx, cf, Cb.bfloat16()), 3e-2)
@@ -2927,7 +2953,7 @@ def main() -> int:
     opc = KernelOperator(Xc, "gaussian", bw)
     Kc = opc.dense()
     idc, cfc = skc.indices.contiguous(), skc.coef.float().contiguous()
-    # the gathers' floor: the card's rate for random 32-byte sectors on this K
+    # the gathers' reference rate: the probe's for random 32-byte sectors on this K
     print("  the card's rate for random sectors (scripts/sector_probe.cu) on the "
           f"float32 K ({nc}, {nc}):")
     rates = sector_rates(torch, KN, Kc)

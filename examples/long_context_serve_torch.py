@@ -15,8 +15,10 @@ be ~10 GB/layer-group per request, while the sketched cache is a few MB.
 Prefill is one batched pass (``Engine.prefill_tokens``: chunked forward plus
 one bulk cache write); the script times it against the token-by-token loop
 it replaced (``prefill_tokens_sequential``, kept as the equivalence
-oracle).  On a CUDA device each sketched decode step attends through the
-``landmark_attention`` kernel (one launch a layer).
+oracle): each side's fastest run over rounds of ``PREFILL_RUNS`` batched
+runs and one of the loop, at least ``TIMING_ROUNDS`` of them and for at
+least ``TIMING_S`` seconds.  On a CUDA device each sketched decode step
+attends through the ``landmark_attention`` kernel (one launch a layer).
 """
 import argparse
 import dataclasses
@@ -34,6 +36,8 @@ from repro_torch.serve.engine import Engine, ServeConfig
 
 ARCH = "stablelm-3b"
 BATCH, PROMPT_LEN, NEW = 2, 48, 16
+PREFILL_RUNS = 5  # timed runs of the batched prefill a round
+TIMING_ROUNDS, TIMING_S = 3, 2.0  # rounds of both sides: at least 3, for at least 2 s
 
 
 def cache_mb(cache) -> float:
@@ -64,15 +68,28 @@ def main() -> None:
     eng = Engine(cfg, params, ServeConfig(**sc))
     cache_e = eng.new_cache(BATCH)
     cache_e, logits_exact = eng.prefill_tokens(cache_e, prompts)   # warm-up
-    sync()
-    t0 = time.perf_counter()
-    eng.prefill_tokens(eng.new_cache(BATCH), prompts)
-    sync()
-    t_batched = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    eng.prefill_tokens_sequential(eng.new_cache(BATCH), prompts)
-    sync()
-    t_seq = time.perf_counter() - t0
+    # the batched prefill is a few ms: one stall of the host can outweigh
+    # it, and a host whose cores sat idle can run its threaded operations
+    # many times slower for about a second; host jitter only adds time, so
+    # each side keeps its fastest run, each on a fresh cache, over rounds
+    # that span TIMING_S seconds
+    def fastest(prefill, runs):
+        best = float("inf")
+        for _ in range(runs):
+            cache = eng.new_cache(BATCH)
+            sync()
+            t0 = time.perf_counter()
+            prefill(cache, prompts)
+            sync()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    t_batched = t_seq = float("inf")
+    rounds, until = 0, time.perf_counter() + TIMING_S
+    while rounds < TIMING_ROUNDS or time.perf_counter() < until:
+        t_batched = min(t_batched, fastest(eng.prefill_tokens, PREFILL_RUNS))
+        t_seq = min(t_seq, fastest(eng.prefill_tokens_sequential, 1))
+        rounds += 1
     print(f"[prefill     ] batched {t_batched * 1e3:7.1f} ms  "
           f"sequential {t_seq * 1e3:7.1f} ms  ({t_seq / t_batched:.0f}x)")
     claims = {"the batched prefill is at least 5× the sequential loop": t_seq >= 5 * t_batched}

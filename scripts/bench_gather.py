@@ -3,6 +3,7 @@
 against an earlier version of that source, in one process on one NVIDIA GPU.
 
     python3 scripts/bench_gather.py [--parent REV_OR_FILE] [--matfree] [--diagnose]
+                                    [--rotate]
 
 The parent is ``git show REV:src/repro_torch/kernels/accum_apply/csrc/
 accum_apply.cu`` (default ``HEAD``), or the file of that name where one
@@ -15,8 +16,10 @@ The column gather (default): the four wrappers that share it, at the main
 paths' shapes on a Gaussian K (bandwidth 0.5 on uniform points in 3-d, as
 ``chip_smoke.py`` builds it): ``accum_grow_slabs`` at n = 32768 with B = 1
 and 16, float32 and bfloat16 K; ``accum_apply`` at m = 1, float32 and
-bfloat16; ``accum_sketch_both`` at m = 4; ``accum_step_slab`` at N = 8192.
-Every output of the change must be the parent's bits (exit 1 otherwise).
+bfloat16; ``accum_sketch_both`` at m = 4; ``accum_step_slab`` at N = 8192,
+float32 and bfloat16 K.  Every output of the change must be the parent's
+bits (exit 1 otherwise), and so must the change's at each of ``ROWS`` rows
+a block, and each ``--diagnose`` variant's.
 Then the card's rate for random sectors (``chip_smoke.sector_rates`` on the
 float32 K: 1024 and 64 sampled columns a row, unsorted, sorted, whole
 sectors and 64-byte segments) and each shape's sector bound.
@@ -29,13 +32,22 @@ Laplacian's self-pair cusp, 5e-2 in bfloat16), beside its byte, FP32 and
 SFU bounds.
 
 Times are ``chip_smoke.timed``'s (CUDA events, and the profiler's device
-time) at each version's default geometry, in the order parent, change,
-change, parent; ``--matfree`` also times the change at 64 to 2048 rows a
-block, and writing C alone (``torch.zero_``, the floor of its bytes).
+time) at each version's default geometry (the parent's: ``PARENT_ROWS``
+rows a block), in the order parent, change, change, parent; for the unit
+step and ``accum_apply`` at m = 1, then both at each of ``ROWS`` rows a
+block; ``--matfree`` also times the change at 64 to 2048 rows a block, and
+writing C alone (``torch.zero_``, the floor of its bytes).
+``--rotate``: each call of the gather takes the next of ``ROTATE`` sketches
+drawn alike (each held parent against change bit for bit), so that the
+sectors it samples are not those the calls just before it left in the
+card's 50 MB L2; without it every call samples the same columns, and the
+unit step's 16 MB of them stay in L2 from call to call.
 ``--diagnose`` also times copies of the change (``build/variants/``) with
 one part altered, once each: the gather without its sort (``unsorted``),
 sorted at every m·d (``sorted_all``), with one load in flight a thread
-(``unroll1``) or half the tile (``tile2048``), all with the same bits;
+(``unroll1``) or half the tile (``tile2048``), the register gather reading
+K through the read-only path (``regs_ldg``; the source's loads are
+evict-first), all with the same bits;
 matfree with 4 or 16 rows a warp step (``rb4``, ``rb16``), its ex2 replaced
 by an FP32 add (``no_sfu``) or its stores dropped (``no_store``), the last
 two wrong by design and unchecked.  The last line is a JSON object of every
@@ -62,6 +74,8 @@ DIAGNOSTICS = {
     "sorted_all": [("constexpr int GATHER_SORTED_MIN = 256;",
                     "constexpr int GATHER_SORTED_MIN = 1;")],
     "unroll1": [("constexpr int GATHER_UNROLL = 8;", "constexpr int GATHER_UNROLL = 1;")],
+    # the register gather with K read through the read-only path
+    "regs_ldg": [("return to_f32(__ldcs(p));", "return to_f32(__ldg(p));")],
     "tile2048": [("constexpr int GATHER_TILE = 4096;", "constexpr int GATHER_TILE = 2048;")],
     "no_store": [("if (rb + q < r_end) out[(size_t)(rb + q) * d + j0 + jj] = acc[q];",
                   "if (acc[q] == -1.2345e-38f) out[(size_t)(rb + q) * d + j0 + jj] = acc[q];")],
@@ -72,7 +86,14 @@ DIAGNOSTICS = {
     "no_sfu": [("if constexpr (GAUSS) return ex2_approx(fminf(-q, 0.0f));",
                 "if constexpr (GAUSS) return fminf(-q, 0.0f) + 1.0f;")],
 }
-GATHER_DIAGNOSTICS = ("unsorted", "sorted_all", "unroll1", "tile2048")
+GATHER_DIAGNOSTICS = ("unsorted", "sorted_all", "unroll1", "tile2048", "regs_ldg")
+# the parent's rows a block for every gather (its autotune.STATIC_TABLE)
+PARENT_ROWS = 64
+# rows a block every gather's bits are checked at, and the unit step and
+# accum_apply at m = 1 timed at in both versions
+ROWS = (8, 16, 32, 64, 128, 256)
+# sketches a call cycles through under --rotate
+ROTATE = 12
 MATFREE_DIAGNOSTICS = ("rb4", "rb16", "no_sfu", "no_store")
 
 
@@ -122,7 +143,7 @@ def main(argv: list[str]) -> int:
     from repro_torch.kernels.accum_apply import ref
 
     parent_arg = argv[argv.index("--parent") + 1] if "--parent" in argv else "HEAD"
-    matfree, diagnose = "--matfree" in argv, "--diagnose" in argv
+    matfree, diagnose, rotate = "--matfree" in argv, "--diagnose" in argv, "--rotate" in argv
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -142,7 +163,8 @@ def main(argv: list[str]) -> int:
         print(f"{name} ({src.name}): nvcc {infos[name]['seconds']:.1f} s")
         lines = infos[name]["ptxas"].splitlines()
         for i, line in enumerate(lines):
-            for kern in ("matfree_apply_kernel", "sketch_gather_kernel"):
+            for kern in ("matfree_apply_kernel", "sketch_gather_kernel",
+                         "sketch_gather_regs_kernel"):
                 if "Compiling entry" in line and kern in line:
                     report = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                               if "registers" in x or "spill" in x]
@@ -161,14 +183,15 @@ def main(argv: list[str]) -> int:
     print(f"SM clock (clocks.max.sm): {clock / 1e6:.0f} MHz")
 
     def rounds(label, fns, bounds):
-        """Time ``fns`` (name → callable) parent, change, change, parent, then
-        each diagnostic variant once; print each time and its share of the
-        bounds (name → ms)."""
+        """Time ``fns`` (name → callable, run on the library of that name, or
+        on the parent's where the name starts with "parent") parent, change,
+        change, parent, then the others once each; print each time and its
+        share of the bounds (name → ms)."""
         for order in ([["parent", "change"], ["change", "parent"]]
                       + [[k for k in fns if k not in ("parent", "change")]]):
             for name in order:
-                if name in libs:
-                    use(name)
+                use(name if name in libs else "parent" if name.startswith("parent")
+                    else "change")
                 ms, dms = CS.timed(torch, fns[name])
                 times.setdefault(label, {}).setdefault(name, []).append(
                     dict(ms=ms, device_ms=dms))
@@ -257,49 +280,79 @@ def main(argv: list[str]) -> int:
         X8 = torch.rand((N_STEP, 3), generator=g, device=dev)
         K8 = KernelOperator(X8, "gaussian", 0.5).dense()
         C8 = torch.randn((N_STEP, D), generator=g, device=dev)
+        def sketches(n, m):
+            """(idx, coef) of ROTATE sketches under --rotate, else of one."""
+            out = []
+            for _ in range(ROTATE if rotate else 1):
+                sk = make_accum_sketch(g, n, D, m, device=dev)
+                out.append((sk.indices.contiguous(), sk.coef.float().contiguous()))
+            return out
+
+        # (label, fn(bm, idx, coef) → outputs, sketches, R, bytes an element
+        # of K, other bytes); bm None is the change's default geometry
         cases = []
         for B in (16, 8, 4, 2, 1):
-            sk = make_accum_sketch(g, N_DENSE, D, B, device=dev)
-            idx, cf = sk.indices.contiguous(), sk.coef.float().contiguous()
+            sks = sketches(N_DENSE, B)
             for dt in (torch.float32, torch.bfloat16):
                 Kt = K.to(dt)
                 cases.append((f"accum_grow_slabs B={B} {str(dt).removeprefix('torch.')}",
-                              lambda Kt=Kt, idx=idx, cf=cf: KN.accum_grow_slabs(Kt, idx, cf,
-                                                                               Cw, aw),
-                              idx, N_DENSE, Kt.element_size(), 2 * N_DENSE * D * 4))
+                              lambda bm, idx, cf, Kt=Kt: KN.accum_grow_slabs(
+                                  Kt, idx, cf, Cw, aw, bm=bm),
+                              sks, N_DENSE, Kt.element_size(), 2 * N_DENSE * D * 4))
                 if B == 1:
                     cases.append((f"accum_apply m=1 {str(dt).removeprefix('torch.')}",
-                                  lambda Kt=Kt, idx=idx, cf=cf: (KN.accum_apply(Kt, idx, cf),),
-                                  idx, N_DENSE, Kt.element_size(), N_DENSE * D * Kt.element_size()))
-        sk = make_accum_sketch(g, N_DENSE, D, 4, device=dev)
-        idx4, cf4 = sk.indices.contiguous(), sk.coef.float().contiguous()
+                                  lambda bm, idx, cf, Kt=Kt: (KN.accum_apply(Kt, idx, cf, bm=bm),),
+                                  sks, N_DENSE, Kt.element_size(), N_DENSE * D * Kt.element_size()))
         cases.append(("accum_sketch_both m=4 float32",
-                      lambda: KN.accum_sketch_both(K, idx4, cf4), idx4, N_DENSE, 4,
-                      N_DENSE * D * 4))
-        sk = make_accum_sketch(g, N_STEP, D, 1, device=dev)
-        id8, cf8 = sk.indices.contiguous(), sk.coef.float().contiguous()
-        cases.append(("accum_step_slab N=8192 float32",
-                      lambda: (KN.accum_step_slab(K8, id8, cf8, C8, aw),), id8, N_STEP, 4,
-                      2 * N_STEP * D * 4))
-        for label, fn, idx, R, isz, other in cases:
-            use("parent")
-            was = fn()
-            use("change")
-            got = fn()
-            ok = all(same_bits(x, y) for x, y in zip(got, was))
+                      lambda bm, idx, cf: KN.accum_sketch_both(K, idx, cf, bm=bm),
+                      sketches(N_DENSE, 4), N_DENSE, 4, N_DENSE * D * 4))
+        sks = sketches(N_STEP, 1)
+        for dt in (torch.float32, torch.bfloat16):
+            K8t = K8.to(dt)
+            cases.append((f"accum_step_slab N=8192 {str(dt).removeprefix('torch.')}",
+                          lambda bm, idx, cf, K8t=K8t: (
+                              KN.accum_step_slab(K8t, idx, cf, C8, aw, bm=bm),),
+                          sks, N_STEP, K8t.element_size(), 2 * N_STEP * D * 4))
+        for label, run, sks, R, isz, other in cases:
+            ok = True
+            for idx, cf in reversed(sks):
+                use("parent")
+                was = run(PARENT_ROWS, idx, cf)
+                use("change")
+                ok &= all(same_bits(x, y) for x, y in zip(run(None, idx, cf), was))
+            # the parent's outputs on the first sketch, against every rows
+            # count and variant
+            for bm in ROWS:
+                ok &= all(same_bits(x, y) for x, y in zip(run(bm, idx, cf), was))
+            variants = [k for k in libs if k not in ("parent", "change")]
+            for name in variants:
+                use(name)
+                ok &= all(same_bits(x, y) for x, y in zip(run(None, idx, cf), was))
             failed |= not ok
-            print(f"  [{'ok' if ok else 'FAIL'}] {label}: every output the parent's bits")
+            print(f"  [{'ok' if ok else 'FAIL'}] {label}: every output the parent's bits"
+                  + (f" on each of {len(sks)} sketches" if rotate else "")
+                  + f", at {ROWS} rows a block too"
+                  + (f", and every variant's ({', '.join(variants)})" if variants else ""))
             distinct = int(torch.unique(idx).numel())
             sb = CS.sector_bound(idx, R, isz, other, rates)
             bounds = {"bytes": (R * distinct * isz + other) / CS.HBM_BYTES_PER_S * 1e3,
                       "sectors": sb["sector_bound_ms"], "sector rate": sb["sector_rate_ms"]}
             print(f"  {label}: {sb['sectors_a_row']} sectors a row; bounds (ms) "
                   + ", ".join(f"{k} {v:.5f}" for k, v in bounds.items()))
-            fns = {"parent": fn, "change": fn}
+
+            def fn(bm, run=run, sks=sks, turn=[0]):
+                """One call at ``bm`` rows a block, on the next sketch."""
+                turn[0] = (turn[0] + 1) % len(sks)
+                return run(bm, *sks[turn[0]])
+
+            fns = {"parent": lambda fn=fn: fn(PARENT_ROWS), "change": lambda fn=fn: fn(None)}
             if label.startswith(("accum_grow_slabs B=16", "accum_grow_slabs B=4 float32",
                                  "accum_grow_slabs B=2 float32", "accum_grow_slabs B=1 float32",
-                                 "accum_sketch_both")):
-                fns.update({k: fn for k in libs if k not in fns})
+                                 "accum_sketch_both", "accum_step_slab", "accum_apply")):
+                fns.update({k: lambda fn=fn: fn(None) for k in libs if k not in fns})
+            if label.startswith(("accum_step_slab", "accum_apply")):
+                for who in ("parent", "change"):
+                    fns.update({f"{who} rows {bm}": lambda fn=fn, bm=bm: fn(bm) for bm in ROWS})
             rounds(label, fns, bounds)
     print(smi)
     print(json.dumps(times))

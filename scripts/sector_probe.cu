@@ -1,5 +1,6 @@
-// The card's rate for reads of random 32-byte sectors, the floor of the
-// column gather in src/repro_torch/kernels/accum_apply/csrc/accum_apply.cu.
+// A rate for reads of random 32-byte sectors, the reference of the column
+// gather in src/repro_torch/kernels/accum_apply/csrc/accum_apply.cu (no
+// floor: the gather's register body, with a whole launch in flight, passes it).
 //
 // One warp takes a row of a row-major (R, N) float32 matrix at a time, its
 // lanes along a list of S sampled columns (the same list for every row, as a
@@ -10,8 +11,12 @@
 // summed, and the sum is stored only if it takes an impossible value, so no
 // load is dropped and nothing is written.
 //
-// Built by chip_smoke.py (``sector_rates``) with the port's nvcc flags; plain
-// C interface, loaded with ctypes.
+// Beside it, the launch floor: an empty kernel of one block of one warp,
+// the least a launch costs the card, and through ctypes the host
+// (chip_smoke.py ``launch_floor``).
+//
+// Built by chip_smoke.py (``sector_rates``, ``launch_floor``) with the port's
+// nvcc flags; plain C interface, loaded with ctypes.
 
 #include <cuda_runtime.h>
 
@@ -45,6 +50,8 @@ __global__ void __launch_bounds__(256) sector_probe_kernel(const float* __restri
   if (acc == -1.2345e-38f) sink[0] = acc;
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" int repro_sector_probe(const float* K, const int* cols, int R, int N, int S,
@@ -56,5 +63,10 @@ extern "C" int repro_sector_probe(const float* K, const int* cols, int R, int N,
     sector_probe_kernel<32><<<blocks, 256, 0, s>>>(K, cols, R, N, S, sink);
   else
     sector_probe_kernel<64><<<blocks, 256, 0, s>>>(K, cols, R, N, S, sink);
+  return cudaGetLastError();
+}
+
+extern "C" int repro_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return cudaGetLastError();
 }

@@ -57,13 +57,14 @@ ENV_CACHE = "REPRO_AUTOTUNE_CACHE"
 ENV_GATE = "REPRO_AUTOTUNE"
 
 # the fallback geometry when the cache has no entry and measuring is off:
-# what the gathers launched with before the cache existed, and the faster
+# the column gather's 0 leaves the rows a block to the body the launch
+# takes (csrc launch_gather), and the faster
 # of the tensor-core attention sweep's two block sizes on the H100
 STATIC_TABLE: dict[str, tuple[int, ...]] = {
     "matfree_cols": (64,),         # matfree_apply: rows of X a block at small n (kernel.matfree_rows)
-    "accum_apply": (64,),          # the gather of accum_apply / accum_step_slab: rows a block
-    "sketch_both": (64,),          # accum_sketch_both's gather: rows a block
-    "accum_grow": (64,),           # accum_grow_slabs' gather: rows a block
+    "accum_apply": (0,),           # the gather of accum_apply / accum_step_slab: rows a block
+    "sketch_both": (0,),           # accum_sketch_both's gather: rows a block
+    "accum_grow": (0,),            # accum_grow_slabs' gather: rows a block
     "landmark_attention": (128,),  # query rows a block (8 where S ≤ 8, decode)
     "landmark_stats": (128,),      # landmark rows a block of the BmV sweep (8 where L ≤ 8)
 }

@@ -18,10 +18,11 @@
 //
 // Launch geometry: the rows a block takes are a runtime argument of
 // matfree_apply and of the column gather (kernel.py's ``bm``), chosen by the
-// measured autotune cache (autotune.py).  A block's threads and registers
-// do not depend on it (the sorted gather's value tile may hold fewer rows),
-// and each output element keeps its one owner and its order of summation, so
-// every row count gives the same bits.
+// measured autotune cache (autotune.py); 0 gives the column gather's body
+// its own default (launch_gather).  It changes the grid, the sorted
+// gather's value tile and the register gather's warps a block, never a
+// thread's registers: each output element keeps its one owner and its order
+// of summation, so every row count gives the same bits.
 //
 // Plain C interface, loaded with ctypes by kernel.py.  Each entry launches
 // on the caller's stream and returns cudaGetLastError().
@@ -317,10 +318,12 @@ cudaError_t launch_left(const void* M, const int* idx, const float* coef, float*
 // kernel below) and writes, so the reads of Cin and the writes are
 // coalesced.  The order of the loads changes no sum: both kernels give the
 // same bits.  An index outside [0, N) sorts last and gives NaN without a
-// load.  Other m·d take the row-at-a-time kernel below (idx and coef staged
-// in shared memory where they fit 48 KB): below 256 columns a row the sort
-// bought 1% at 128 and cost 7% at 64 (B = 2 and 1 at d = 64, float32, on
-// the H100).  One pass over K, no reduction across threads or blocks.
+// load.  Below GATHER_SORTED_MIN the register gather below takes the
+// shapes it holds (the sort bought 1% at m·d = 128 and cost 7% at 64 over
+// the row-at-a-time kernel: B = 2 and 1 at d = 64, float32, on the H100);
+// the row-at-a-time kernel takes the rest, and every m·d above
+// GATHER_SORTED_MAX (idx and coef staged in shared memory where they fit
+// 48 KB).  One pass over K, no reduction across threads or blocks.
 // --------------------------------------------------------------------------
 constexpr int GATHER_SORTED_MIN = 256;   // m·d of the sorted gather: from …
 constexpr int GATHER_SORTED_MAX = 1024;  // … to
@@ -422,7 +425,107 @@ __global__ void __launch_bounds__(GATHER_THREADS) sketch_gather_kernel(
   }
 }
 
-// The row-at-a-time gather, for m·d above GATHER_SORTED_MAX: a warp takes
+// The register gather, for the engine's small gathers: at most 64 columns
+// and 4 terms a column (m·d < GATHER_SORTED_MIN): the unit step
+// (accum_step_slab, and accum_apply at m = 1), and accum_grow_slabs and
+// accum_sketch_both at B, m ≤ 3 on d = 64.
+//
+// Bound: random sectors, and how many of them the launch keeps in flight.
+// A warp that walks its rows as load, sum, store keeps about one sector in
+// flight a thread (Cout may be Cin, so no load can pass the store before
+// it), and 64 rows a block at the unit step's R = 8192 make 128 blocks, fewer
+// than the card's 132 SMs.
+//
+// Design: a lane's columns are the same in every row (j = lane and
+// lane + 32), so each lane loads its 2·m (index, weight) pairs into
+// registers once, with no shared memory and no barrier.  A warp takes one
+// row at a time: it issues all its gathers of K and its coalesced loads of
+// Cin into registers before it sums or stores anything, so no store sits
+// between two loads.  K is read once, by evict-first loads (__ldcs).  Then
+// each output sums its m terms in order (the same `acc += coef·v` chain as
+// the kernels above and below, so all three give the same bits) and is
+// written.  A block of min(rows, 8) warps takes `rows` rows; the default,
+// GATHER_REGS_ROWS, gives each warp one row, so that at R = 8192 all 8192
+// warps fit on the card at once (32 registers a thread at m = 1) and every
+// load of the launch is in flight together.  Measured on the H100
+// (scripts/bench_gather.py, PERF.md §6): more rows a block, several rows a
+// warp at a time and read-only loads (__ldg) were each slower.  MI is the
+// terms a lane holds (1, or up to 4).  An index outside [0, N) gives NaN
+// without a load; a lane's columns at or past d, and terms at or past m,
+// load nothing.  Other shapes below GATHER_SORTED_MIN take the
+// row-at-a-time kernel below.
+constexpr int GATHER_REGS_D = 64;    // the register gather's most columns …
+constexpr int GATHER_REGS_M = 4;     // … and terms a column
+constexpr int GATHER_REGS_ROWS = 8;  // its default rows a block
+constexpr int GATHER_ROWS = 64;      // the sorted and row-at-a-time kernels' default
+
+template <typename T>
+__device__ __forceinline__ float load_evict_first(const T* p) {
+  return to_f32(__ldcs(p));
+}
+
+template <typename T, typename TO, int MI>
+__global__ void __launch_bounds__(256) sketch_gather_regs_kernel(
+    const T* __restrict__ K, const int* __restrict__ idx, const float* __restrict__ coef,
+    const float* Cin, float a, float* C32, TO* Cout, int R, int N, int m, int d, int rows) {
+  constexpr int KC = GATHER_REGS_D / 32;
+  const int lane = threadIdx.x;
+  int col[KC][MI];
+  float w[KC][MI];
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    const int j = lane + 32 * k;
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const bool live = j < d && i < m;
+      col[k][i] = live ? idx[i * d + j] : -1;
+      w[k][i] = live ? coef[i * d + j] : 0.0f;
+    }
+  }
+  const int r1 = (int)min((long long)R, (long long)blockIdx.x * rows + rows);
+  for (int r = blockIdx.x * rows + threadIdx.y; r < r1; r += blockDim.y) {
+    const T* Kr = K + (size_t)r * N;
+    float v[KC][MI];
+    float c[KC];
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      const int j = lane + 32 * k;
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        v[k][i] = (unsigned)col[k][i] < (unsigned)N ? load_evict_first(Kr + col[k][i])
+                                                    : __int_as_float(0x7fc00000);
+      c[k] = Cin != nullptr && j < d ? Cin[(size_t)r * d + j] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      const int j = lane + 32 * k;
+      if (j < d) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+          if (i < m) acc += w[k][i] * v[k][i];
+        const size_t o = (size_t)r * d + j;
+        if (C32 != nullptr) C32[o] = acc;
+        if (Cout != nullptr)
+          store(Cout + o, Cin != nullptr ? __fadd_rn(__fmul_rn(a, c[k]), acc) : acc);
+      }
+    }
+  }
+}
+
+template <typename T, typename TO, int MI>
+cudaError_t launch_regs(const void* K, const int* idx, const float* coef, const float* Cin,
+                        float a, float* C32, TO* Cout, int R, int N, int m, int d, int rows,
+                        cudaStream_t stream) {
+  sketch_gather_regs_kernel<T, TO, MI><<<(R + rows - 1) / rows, dim3(32, min(8, rows)), 0,
+                                         stream>>>(
+      static_cast<const T*>(K), idx, coef, Cin, a, C32, Cout, R, N, m, d, rows);
+  return cudaGetLastError();
+}
+
+// The row-at-a-time gather, for m·d above GATHER_SORTED_MAX and for the
+// shapes below GATHER_SORTED_MIN that the register gather does not hold
+// (more than GATHER_REGS_D columns or GATHER_REGS_M terms): a warp takes
 // one row at a time with its lanes along j and reads its m terms in order.
 template <typename T, typename TO>
 __global__ void sketch_gather_rows_kernel(const T* __restrict__ K, const int* __restrict__ idx,
@@ -469,6 +572,12 @@ cudaError_t launch_gather(const void* K, const int* idx, const float* coef, cons
                           float a, float* C32, TO* Cout, int R, int N, int m, int d, int rows,
                           cudaStream_t stream) {
   const int md = m * d;
+  const bool regs = md < GATHER_SORTED_MIN && d <= GATHER_REGS_D && m <= GATHER_REGS_M;
+  if (rows <= 0) rows = regs ? GATHER_REGS_ROWS : GATHER_ROWS;
+  if (regs)
+    return m == 1 ? launch_regs<T, TO, 1>(K, idx, coef, Cin, a, C32, Cout, R, N, m, d, rows, stream)
+                  : launch_regs<T, TO, GATHER_REGS_M>(K, idx, coef, Cin, a, C32, Cout, R, N, m,
+                                                      d, rows, stream);
   const dim3 grid((R + rows - 1) / rows);
   if (GATHER_SORTED_MIN <= md && md <= GATHER_SORTED_MAX) {
     const size_t smem = (size_t)pow2_at_least(md) * sizeof(unsigned long long) +
@@ -525,8 +634,12 @@ cudaError_t launch_apply(const void* K, const int* idx, const float* coef, void*
 // accum_step_slab — replaces AA:277 `accum_step_slab`.
 //
 // out = a·Cin + K·T̃ (R, d) float32 for one slab (idx/coef of shape (1, d)).
-// One launch of the gather with m = 1.  Bound on the H100: launch latency at
-// the path's R = 8192 (6.3 MB in all, 1.9 µs at 3.35 TB/s).
+// One launch of the gather with m = 1, which takes the register gather for
+// d ≤ 64.  Bound on the H100: random sectors, R·d of them at the path's
+// R = 8192, d = 64, against 1.9 µs for the 6.3 MB needed at 3.35 TB/s.  The
+// sector probe's random rate (scripts/sector_probe.cu) gives 17.5 µs, which
+// the register gather beats: the probe is no floor, and the card's own
+// random-sector rate is not measured.
 // --------------------------------------------------------------------------
 template <typename T>
 cudaError_t launch_step(const void* K, const int* idx, const float* coef, const float* Cin,

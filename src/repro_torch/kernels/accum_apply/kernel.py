@@ -16,9 +16,10 @@ index out of range reads nothing and gives NaN in the outputs it feeds.
 
 ``bm``, where a launcher takes it, is the rows a block takes: a launch
 geometry the autotune cache chooses (``ops``), which changes neither a
-block's threads or registers nor any sum's order.  The default is the
-static geometry, ``autotune.STATIC_TABLE`` (``matfree_rows(n)`` for
-``matfree_apply``).
+thread's registers nor any sum's order.  The default is the static
+geometry, ``autotune.STATIC_TABLE`` (``matfree_rows(n)`` for
+``matfree_apply``); its 0 for the column gather leaves the rows to the body
+the launch takes (csrc ``launch_gather``).
 """
 from __future__ import annotations
 
@@ -163,11 +164,13 @@ def _int32(**dims: int) -> None:
 
 
 def _rows(bm: int | None, kind: str) -> int:
-    """The rows a block takes: ``bm``, or the kind's static geometry.  A row
-    count changes only the grid, so any positive one fits the device."""
+    """The rows a block takes: ``bm``, or the kind's static geometry; 0
+    gives the column gather's body its own default (csrc ``launch_gather``).
+    A row count changes only the grid (and the register gather's warps a
+    block), so any one fits the device."""
     bm = autotune.STATIC_TABLE[kind][0] if bm is None else int(bm)
-    if bm < 1:
-        raise ValueError(f"bm={bm}: a block takes at least one row")
+    if bm < 0:
+        raise ValueError(f"bm={bm}: a block cannot take fewer than 0 rows")
     return bm
 
 

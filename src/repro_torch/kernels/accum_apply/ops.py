@@ -34,8 +34,8 @@ MAX_COLS = 8192
 
 # rows a block: the candidates of the column gather and of matfree_apply
 # (whose eight warps take eight rows a step: 64 rows keep all of them busy),
-# beside each one's default
-GATHER_ROWS = (16, 64, 256)
+# beside each one's default (the gather's: STATIC_TABLE's 0, the body's own)
+GATHER_ROWS = (16, 256)
 MATFREE_ROWS = (64, 256, 1024)
 
 
@@ -46,10 +46,11 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def _rows_candidates(rows: tuple[int, ...], R: int,
                      fallback: tuple[int, ...]) -> list[tuple[int, ...]]:
     """The fallback first, then each row count of ``rows``; counts that give
-    R rows the same grid are one candidate (the first of them)."""
+    R rows the same grid are one candidate (the first of them).  A fallback
+    of 0 (the body's own rows) is a candidate of its own."""
     grids = {}
     for bm in (fallback[0], *rows):
-        grids.setdefault(-(-R // bm), (bm,))
+        grids.setdefault(-(-R // bm) if bm else 0, (bm,))
     return list(grids.values())
 
 

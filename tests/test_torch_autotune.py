@@ -258,7 +258,8 @@ def test_entry_points_key_by_their_library_source(tmp_path, monkeypatch):
     f32, key = torch.float32, SHAPE
     assert KT.library_path(KT.SOURCE).name == f"libaccum_apply-{KT.source_hash(KT.SOURCE)}.so"
     assert LK.source_hash() == KT.source_hash(LK.SOURCE) != KT.source_hash(KT.SOURCE)
-    for source, want in ((None, (64,)), ("f" * 16, (64,)), (KT.source_hash(), (16,))):
+    static = AT.STATIC_TABLE["accum_apply"]
+    for source, want in ((None, static), ("f" * 16, static), (KT.source_hash(), (16,))):
         path.write_text(json.dumps({AT._key("accum_apply", key, f32, CPU, source): [16]}))
         monkeypatch.setattr(AT, "_MEM", {})
         assert OT.autotune_blocks(*key, f32, CPU) == want
@@ -373,20 +374,25 @@ def test_exception_in_a_timed_launch_propagates(tmp_path, monkeypatch):
 
 def test_gate_off_and_empty_cache_give_the_static_geometry(monkeypatch):
     """REPRO_AUTOTUNE=0 with no cache file: every kind resolves to
-    STATIC_TABLE, which holds the fixed geometry the gathers launched with
-    before the cache (64 rows a block) and the tensor-core attention
-    sweep's 128 rows a block (8 query rows where S ≤ 8)."""
+    STATIC_TABLE, which holds matfree's 64 rows a block, the column
+    gather's 0 (the rows of the body the launch takes, csrc
+    ``launch_gather``) and the tensor-core attention sweep's 128 rows a
+    block (8 query rows where S ≤ 8)."""
     monkeypatch.setenv(AT.ENV_GATE, "0")
     assert set(AT.STATIC_TABLE) == {"matfree_cols", "accum_apply", "sketch_both",
                                     "accum_grow", "landmark_attention", "landmark_stats"}
     for kind, static in AT.STATIC_TABLE.items():
-        assert static == ((128,) if kind.startswith("landmark") else (64,))
+        assert static == ((128,) if kind.startswith("landmark")
+                          else (64,) if kind == "matfree_cols" else (0,))
         assert AT.measured_blocks(kind, (1, 2, 3), torch.float32, CPU, [(16,), (128,)],
                                   _bench([]), static, concrete=True) == static
-    assert OT.autotune_blocks(*SHAPE, torch.float32, CPU) == (64,)
-    assert OT.autotune_both_blocks(4096, CPU, 64, 4) == (64,)
-    for kind in ("matfree_cols", "accum_apply", "sketch_both", "accum_grow"):
-        assert KT._rows(None, kind) == 64
+    assert OT.autotune_blocks(*SHAPE, torch.float32, CPU) == (0,)
+    assert OT.autotune_both_blocks(4096, CPU, 64, 4) == (0,)
+    assert KT._rows(None, "matfree_cols") == 64
+    for kind in ("accum_apply", "sketch_both", "accum_grow"):
+        assert KT._rows(None, kind) == 0 and KT._rows(7, kind) == 7
+    with pytest.raises(ValueError):
+        KT._rows(-1, "accum_apply")
     assert LK.static_bq(4) == 8 and LK.static_bq(9) == 128
     assert LK.static_bq(1024, "landmark_stats") == 128
     # the key tile of each sweep: the 8 keys a warp of the decode sweep reads
@@ -404,6 +410,18 @@ def test_gate_off_and_empty_cache_give_the_static_geometry(monkeypatch):
     assert LK.plan(32, 4, 1024, 128, 128, f32) == (8, 16)
     assert LK.plan(32, 32768, 1024, 128, 128, f32) == (1, 16)
     assert LK.plan(32, 1024, 32768, 128, 128, f32, min_split=2) == (3, 171)
+
+
+@pytest.mark.parametrize("R,fallback,want", [
+    (8192, (0,), [(0,), (16,), (256,)]), (100, (0,), [(0,), (16,), (256,)]),
+    (10, (0,), [(0,), (16,)]), (8192, (64,), [(64,), (16,), (256,)]),
+    (10, (64,), [(64,)])])
+def test_gather_candidates_keep_the_body_default(R, fallback, want):
+    """The column gather's candidates: the fallback first, the static 0
+    (the rows of the body the launch takes) a candidate apart from every
+    row count, then each of ``GATHER_ROWS`` that gives R rows a grid of its
+    own."""
+    assert OT._gemm_candidates(R, fallback) == want
 
 
 def test_cpu_route_never_measures(tmp_path, monkeypatch):

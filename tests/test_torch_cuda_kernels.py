@@ -105,8 +105,9 @@ def test_cuda_matfree_at_m16_every_record_layout(cuda_device, p, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B", [1, 16, 17])
 def test_cuda_gather_edges(cuda_device, B, dtype):
-    """The column gather on a ragged R = N = 3001 at d = 64: B = 1 and 16
-    take the sorted kernel, B = 17 (m·d above 1024) the row-at-a-time one.
+    """The column gather on a ragged R = N = 3001 at d = 64: B = 1 (m·d =
+    64) takes the register gather, B = 16 the sorted kernel, B = 17 (m·d
+    above 1024) the row-at-a-time one.
     An index ≥ N and a negative one make NaN in their columns and nowhere
     else; the rest holds the plain version; accum_grow_slabs written over
     its own Cin gives the bits of a separate output; every rows-a-block
@@ -140,6 +141,69 @@ def test_cuda_gather_edges(cuda_device, B, dtype):
                              OT._gemm_candidates(R, (64,)) + [(1,), (100,)], (64,))
     _candidates_equal_static(lambda c: (KT.accum_apply(K, good, coef, bm=c[0]),),
                              OT._gemm_candidates(R, (64,)) + [(1,)], (64,))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("d", [1, 33, 64, 100])
+def test_cuda_register_gather(cuda_device, d, m, dtype):
+    """The small gathers on a ragged R = N = 1001 through all four wrappers
+    against their plain versions: d ≤ 64 takes the register gather (but
+    m·d = 256 at d = 64, m = 4: the sorted one), d = 100 the row-at-a-time
+    kernel (the sorted one at m ≥ 3).  An index of N and one of −7 make NaN
+    in their columns and nowhere else; accum_grow_slabs written over its own
+    Cin gives the bits of a separate output; every rows-a-block candidate,
+    ragged ones included, gives the static geometry's bits (0: the body's
+    own rows)."""
+    g = torch.Generator().manual_seed(100 * d + m)
+    R = N = 1001
+    K = torch.randn((R, N), generator=g).to(cuda_device, dtype)
+    good = torch.randint(0, N, (m, d), generator=g, dtype=torch.int32)
+    coef = torch.randn((m, d), generator=g).to(cuda_device)
+    Cin = torch.randn((R, d), generator=g).to(cuda_device)
+    a = 0.6
+    bad = good.clone()
+    bad[m - 1, 0], bad[0, d - 1] = N, -7
+    good, bad = good.to(cuda_device), bad.to(cuda_device)
+    nan_cols = sorted({0, d - 1})
+    cols = [j for j in range(d) if j not in nan_cols]
+    f32 = dtype == torch.float32
+    out = KT.accum_apply(K, bad, coef)
+    assert bool(out[:, nan_cols].float().isnan().all())
+    assert not bool(out[:, cols].float().isnan().any())
+    if cols:  # d = 1: its one column holds both bad indices
+        _close(out[:, cols], RT.accum_apply_ref(K, good, coef)[:, cols], 1e-5 if f32 else 2e-2)
+    out = KT.accum_apply(K, good, coef)
+    assert out.dtype == dtype
+    _close(out, RT.accum_apply_ref(K, good, coef), 1e-5 if f32 else 2e-2)
+    C, W = KT.accum_sketch_both(K, good, coef)
+    for x, y in zip((C, W), RT.sketch_both_ref(K, good, coef)):
+        _close(x, y, 1e-4 if f32 else 3e-2)
+    plain = RT.accum_grow_ref(K, good, coef, Cin, a)
+    grow = KT.accum_grow_slabs(K, good, coef, Cin, a)
+    for x, y in zip(grow, plain):
+        _close(x, y, 1e-4)
+    C2 = Cin.clone()
+    again = KT.accum_grow_slabs(K, good, coef, C2, a, out=C2)
+    assert again[0].data_ptr() == C2.data_ptr()
+    assert all(torch.equal(x, y) for x, y in zip(again, grow))
+    static = AT.STATIC_TABLE["accum_apply"]
+    cands = OT._gemm_candidates(R, static) + [(1,), (8,), (64,), (100,), (R,)]
+    _candidates_equal_static(lambda c: (KT.accum_apply(K, good, coef, bm=c[0]),), cands, static)
+    _candidates_equal_static(lambda c: KT.accum_sketch_both(K, good, coef, bm=c[0]), cands,
+                             static)
+    _candidates_equal_static(lambda c: KT.accum_grow_slabs(K, good, coef, Cin, a, bm=c[0]),
+                             cands, static)
+    if m == 1:
+        step = KT.accum_step_slab(K, bad, coef, Cin, a)
+        assert bool(step[:, nan_cols].isnan().all())
+        assert not bool(step[:, cols].isnan().any())
+        step = KT.accum_step_slab(K, good, coef, Cin, a)
+        _close(step, RT.accum_step_ref(K, good, coef, Cin, a), 1e-5)
+        _candidates_equal_static(
+            lambda c: (KT.accum_step_slab(K, good, coef, Cin, a, bm=c[0]),), cands, static)
     torch.cuda.synchronize()
 
 
