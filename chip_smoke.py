@@ -59,7 +59,8 @@
        kernel under the profiler.
    Then path (m), the K·S baseline of benchmarks/kernel_bench.py:
    ``sketch_right_kernel`` (accum_apply at the cache's geometry) against
-   ``accum_apply_scalar`` (the seed's scalar loop, bm=256, bd=8) at the
+   ``accum_apply_scalar`` (the reference's baseline at bm=256, bd=8: the
+   column gather at rows a block from R, csrc ``scalar_rows``) at the
    anchor R=4096, N=8192, d=64, m=4 and on (c)'s dense K at n = 32768 in
    float32 and bfloat16, beside the static geometry, torch.sparse.mm and the
    plain version; and a corrupt cache file, which falls back to the static
@@ -84,7 +85,7 @@
    ``pallas_call``, so none of the nine kernels may launch):
    (o1) stablelm-3b at full width and depth (2.795 B bfloat16 parameters
         from seed 0, AdamW with float32 masters, ``remat="full"``) on
-        4 × 4096 synthetic tokens for 10 steps, compression off and then on:
+        4 × 4096 synthetic tokens for 6 steps, compression off and then on:
         losses and gradient norms finite and falling, each step's ms and
         tokens/s, the peak device memory, ``compress_ratio`` against the
         reckoned 0.9194, and one more step under the profiler;
@@ -97,7 +98,7 @@
    counts from 0 (only landmark_attention may launch: the reference's MoE,
    Mamba-2 and cond code reaches no ``pallas_call``):
    (p1) zamba2-7b at full width and depth (81 layers, 4.65 B bfloat16
-        parameters), batch 4, 2048-token prompts, 32 greedy tokens with the
+        parameters), batch 4, 1024-token prompts, 32 greedy tokens with the
         exact and the sketched cache: prefill ms (the Mamba-2 token scan),
         decode tokens/s, cache bytes, landmark_attention at head dim 112 on
         the 27 shared-attention layers (one profiled sketched step), the
@@ -278,23 +279,26 @@ N_MESH2, N_HUTCH, MESH_TIMEOUT = 2**21 - 1, 8192, 120
 F32_FIT_TOL = 1e-2
 # path (o), training: stablelm-3b at full width and depth on 4 × 4096 tokens
 # (SHAPES["train_4k"]'s sequence, the global batch cut from 256 to 4 for one
-# card), 10 steps a run; the kill-and-resume check at one superblock, 8
-# steps, resumed from step 4; the optimizer both use (from a random init the
-# full-size loss spikes within 10 steps at lr_peak 1e-3, and at 3e-4 with 2
-# or 10 warmup steps, on the H100; 1e-4 falls, PERF.md §6)
-TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "stablelm-3b", 4, 4096, 10
+# card), 6 steps a run (the script's time limit: a step takes 5.2 s); the
+# kill-and-resume check at one superblock, 8 steps, resumed from step 4; the
+# optimizer both use (from a random init the full-size loss spikes within
+# 10 steps at lr_peak 1e-3, and at 3e-4 with 2 or 10 warmup steps, on the
+# H100; 1e-4 falls, PERF.md §6)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "stablelm-3b", 4, 4096, 6
 RESUME_STEPS, RESUME_AT = 8, 4
 TRAIN_OPT = dict(lr_peak=1e-4, warmup_steps=2)
 
 # path (p), the model families: zamba2-7b served at full width and depth
-# (batch 4, 2048-token prompts, 32 greedy tokens, exact and sketched caches;
-# the kill-and-resume check on one 256-token prompt); moonshot-v1-16b-a3b at
-# full width, full depth where the reckoned peak fits MOE_PEAK_GB, else
-# MOE_CUT_SB superblocks (batch 4, 1024-token prompts, 16 greedy tokens,
-# exact cache); the conditioning input: qwen2-vl-2b prefilled (batch 2, 1024
-# tokens after its 1024 cond positions) and musicgen-medium trained for 2
-# steps (2 × 2048 tokens after its 256 cond positions, remat="full")
-HYB_ARCH, HYB_BATCH, HYB_PROMPT, HYB_NEW, HYB_RESUME = "zamba2-7b", 4, 2048, 32, 256
+# (batch 4, 1024-token prompts, cut for the script's time limit: the token
+# scan runs 4 prefills, 19–21 s each at 2048 tokens; 32 greedy tokens, exact
+# and sketched caches; the kill-and-resume check on one 256-token prompt);
+# moonshot-v1-16b-a3b at full width, full depth where the reckoned peak fits
+# MOE_PEAK_GB, else MOE_CUT_SB superblocks (batch 4, 1024-token prompts, 16
+# greedy tokens, exact cache); the conditioning input: qwen2-vl-2b prefilled
+# (batch 2, 1024 tokens after its 1024 cond positions) and musicgen-medium
+# trained for 2 steps (2 × 2048 tokens after its 256 cond positions,
+# remat="full")
+HYB_ARCH, HYB_BATCH, HYB_PROMPT, HYB_NEW, HYB_RESUME = "zamba2-7b", 4, 1024, 32, 256
 F32_PROMPT = 512
 MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_NEW = "moonshot-v1-16b-a3b", 4, 1024, 16
 MOE_PEAK_GB, MOE_CUT_SB = 72.0, 24
@@ -405,6 +409,64 @@ def close(out, plain, tol: float):
     return err.max().item(), err.max().item() / scale, ok
 
 
+def port_launches() -> int:
+    """The launches the port's kernel wrappers have counted so far, all
+    wrappers together (0 before the port is imported)."""
+    total = 0
+    for name in ("repro_torch.kernels.accum_apply.kernel",
+                 "repro_torch.kernels.landmark_attention.kernel"):
+        mod = sys.modules.get(name)
+        if mod is not None:
+            total += sum(f.launches for f in mod.KERNELS)
+    return total
+
+
+# A profiler session started after a long one on the H100 (torch 2.11) loses
+# the device records of its first launches, more the more long sessions ran
+# before it (scripts/profiler_drops.py; up to 258 in this script): each
+# session therefore opens with PAD launches of torch's empty spin kernel
+# (``torch.cuda._sleep(0)``), whose records every reader below leaves out.
+PAD = 1024
+SPIN = "spin_kernel"
+# the most a run's device time a call may exceed its CUDA-event time (timed)
+DEVICE_SLACK = 1.05
+
+
+def pad_profile(torch, pad: int = PAD) -> None:
+    """Launch ``pad`` empty spin kernels: the records a session may lose."""
+    for _ in range(pad):
+        torch.cuda._sleep(0)
+
+
+def device_records(prof) -> tuple[list[int], int]:
+    """(the durations in ns of the device's records (kernels, copies,
+    fills) of a finished profiler session, the pad's left out; the pad's
+    records it kept), from the raw kineto events."""
+    from torch.autograd import DeviceType
+
+    out, pads = [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if SPIN in e.name():
+                pads += 1
+            else:
+                out.append(e.end_ns() - e.start_ns())
+    return out, pads
+
+
+def profiled_calls(torch, fn, calls: int, pad: int = PAD) -> tuple[list[int], int]:
+    """``device_records`` of ``calls`` back-to-back calls of ``fn`` in a
+    profiler session of their own, after ``pad`` spin kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad_profile(torch, pad)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return device_records(prof)
+
+
 def timed(torch, fn, reps: int = 5, run_ms: float = 20.0,
           max_calls: int = 200) -> tuple[float, float | None]:
     """(ms, device ms) of one call of ``fn``, from runs of back-to-back calls.
@@ -413,13 +475,18 @@ def timed(torch, fn, reps: int = 5, run_ms: float = 20.0,
     median of ``reps`` runs, after warm-up.  ``calls`` is sized from one call
     so that a run lasts about ``run_ms``.  Where the host takes longer to
     issue a call than the device to run it, this measures the host.
-    device ms: the summed duration of the device's kernels and copies in a
-    run under ``torch.profiler``, over ``calls``: the larger of two such
-    runs, as the profiler now and then misses a record; None where it saw
-    no device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    device ms: the summed duration of the device's records (kernels, copies,
+    fills) in a run under ``torch.profiler``, over ``calls``.  The profiler
+    drops records (``PAD``), so a run counts only where it holds all of
+    them and no more: ``calls`` times the records of one warm-up call, the
+    larger of the port's launch counters around that call and the
+    profiler's records of it alone; and only where its device time a call
+    is at most ``DEVICE_SLACK`` times ``ms`` (one stream's work cannot take
+    the device longer than the run takes; on the H100 a run with its count
+    of records read 11% over it).  A run that fails either is tried once
+    more, after four times the pad; where that one fails too, the reason is
+    printed and the device ms is None, as it is where the profiler saw no
+    device activity."""
     def run(calls):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -435,15 +502,19 @@ def timed(torch, fn, reps: int = 5, run_ms: float = 20.0,
     torch.cuda.synchronize()
     calls = max(1, min(max_calls, round(run_ms / max(run(1), 1e-3))))
     ms = statistics.median(run(calls) for _ in range(reps))
-    us = 0.0
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = max(us, sum(e.time_range.elapsed_us() for e in prof.events()
-                         if e.device_type == DeviceType.CUDA))
-    return ms, (us / 1e3 / calls if us > 0 else None)
+    before = port_launches()
+    one, _ = profiled_calls(torch, fn, 1)
+    per_call = max(port_launches() - before, len(one))
+    for pad in (PAD, 4 * PAD):
+        records, pads = profiled_calls(torch, fn, calls, pad)
+        dms = sum(records) / 1e6 / calls
+        if len(records) == calls * per_call and dms <= DEVICE_SLACK * ms:
+            return ms, (dms if dms > 0 else None)
+        print(f"  timed: the profiler kept {len(records)} of {calls * per_call} device "
+              f"records of a run of {calls} calls ({dms:.5f} device ms a call against "
+              f"{ms:.5f} on CUDA events) and {pads} of its {pad} pad records"
+              + ("; once more" if pad == PAD else "; device time not read"))
+    return ms, None
 
 
 def profiled(torch, fn) -> tuple[float, float, list, dict]:
@@ -456,13 +527,15 @@ def profiled(torch, fn) -> tuple[float, float, list, dict]:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pad_profile(torch)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and SPIN not in e.name:
             by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
     return wall * 1e3, sum(by.values()), [(n[:60], round(t, 3)) for n, t in top], by
@@ -471,17 +544,11 @@ def profiled(torch, fn) -> tuple[float, float, list, dict]:
 def device_ops_per_call(torch, fn, calls: int = 20) -> int:
     """Operations the device ran (kernels, copies, fills) per warm call of
     ``fn``: their count under ``torch.profiler`` over ``calls`` calls, over
-    ``calls``, rounded (the profiler now and then misses a record)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    ``calls``, rounded (``profiled_calls``: its session opens with the pad)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return round(sum(e.device_type == DeviceType.CUDA for e in prof.events()) / calls)
+    records, _ = profiled_calls(torch, fn, calls)
+    return round(len(records) / calls)
 
 
 class PathTrace:
@@ -501,7 +568,8 @@ class PathTrace:
     H100 the host-side ranges get no device time of the port's kernels
     linked to them).  The raw kineto events are read rather than
     ``prof.events()``, which builds a Python event, and a tree of them, for
-    every host operation of the path."""
+    every host operation of the path.  Each session opens with the pad
+    (``PAD``), whose records count for nothing."""
 
     def __init__(self, torch, autotune, on: bool):
         self.torch, self.at, self.on = torch, autotune, on
@@ -519,6 +587,8 @@ class PathTrace:
         self.torch.cuda.synchronize()
         self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         self.prof.start()
+        pad_profile(self.torch)
+        self.torch.cuda.synchronize()
         self.at.PROFILE_RANGES = True
 
     def end(self) -> None:
@@ -534,6 +604,8 @@ class PathTrace:
             if e.device_type() != DeviceType.CUDA:
                 continue
             span, name = (e.start_ns(), e.end_ns()), e.name()
+            if SPIN in name:
+                continue
             if name.startswith("launch:"):
                 ranges.append((*span, name.removeprefix("launch:")))
             else:
@@ -2765,6 +2837,7 @@ def memory_plan_path(torch, dev, smi: str, tmp: Path, *, cfg=None, loss_bs=U_LOS
 
 def main() -> int:
     """Run the checks and the main path; return the exit code."""
+    t_start = time.perf_counter()
     # path (o) trains deterministically: cuBLAS reads this when CUDA starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
@@ -3157,8 +3230,9 @@ def main() -> int:
     nsplit, run = LK.plan(P, G, Lm, Dh, Dh, torch.float32)
     print(f"  landmark_attention decode: {ms:.4f} ms (device {dms}), plain {pms:.4f} ms, "
           f"bound {b:.5f} ms by {by}, SDPA {lms:.4f} ms (device {ldms}); "
-          f"{b / dms:.1%} of the byte bound on device time ({b / ms:.1%} on CUDA events), "
-          f"{nbytes / dms / 1e9:.3f} TB/s; {per_call:g} device operations a call; "
+          f"{b / (dms or math.nan):.1%} of the byte bound on device time ({b / ms:.1%} on "
+          f"CUDA events), {nbytes / (dms or math.nan) / 1e9:.3f} TB/s; {per_call:g} device "
+          f"operations a call; "
           f"{nsplit} splits × {LK.DECODE_WARPS} warps × {run} keys")
     qh, kh, Mh = qd.bfloat16(), ktd.bfloat16(), Md.bfloat16()
     outh = LK.landmark_attention(qh, kh, Mh, bias)
@@ -3170,14 +3244,15 @@ def main() -> int:
     hbytes = (qh.numel() + kh.numel() + Mh.numel() + outh.numel()) * 2 + bias.numel() * 4
     hb, _ = bound_ms(hbytes, 2 * P * G * Lm * 2 * Dh)
     print(f"  landmark_attention bf16 decode: {hms:.4f} ms (device {hdms}), bound "
-          f"{hb:.5f} ms, {hb / hdms:.1%} of it on device time")
+          f"{hb:.5f} ms, {hb / (hdms or math.nan):.1%} of it on device time")
     rows["landmark_attention"] = dict(replaces=f"{LTPU}:54", max_abs_err=ea,
                                       max_rel_err=er, ms=ms, device_ms=dms,
                                       plain_ms=pms, bound_ms=b, bound_by=by,
                                       library_ms=lms, library_device_ms=ldms,
                                       library="SDPA with the bias as attn_mask",
                                       shape="decode P=32 G=4 L=1024",
-                                      share_of_bound=b / dms, tb_per_s=nbytes / dms / 1e9,
+                                      share_of_bound=b / (dms or math.nan),
+                                      tb_per_s=nbytes / (dms or math.nan) / 1e9,
                                       device_ops_per_call=per_call,
                                       plan=dict(splits=nsplit, warps=LK.DECODE_WARPS,
                                                 keys_a_warp=run),
@@ -3296,6 +3371,8 @@ def main() -> int:
     ALL = KN.KERNELS + LK.KERNELS
 
     def reset_counts():
+        """Set every launch count to 0 (a path's start: the time so far printed)."""
+        print(f"  [{time.perf_counter() - t_start:.1f} s since the script started]")
         for f in ALL:
             f.launches = 0
 
@@ -3823,8 +3900,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. path (m): the K·S baseline (benchmarks/kernel_bench.py:52-74) ---- #
-    # accum_apply with the cache's geometry against the seed's scalar loop at
-    # bm=256, bd=8, at the benchmark's anchor and on the engine's dense K
+    # accum_apply with the cache's geometry against the reference's baseline
+    # at bm=256, bd=8 (the column gather at rows a block from R), at the
+    # benchmark's anchor and on the engine's dense K
     print("\n== path (m): the K·S baseline, accum_apply against accum_apply_scalar ==")
     reset_counts()
     # the path's device ms by wrapper: each on-path call's shape timed on
@@ -3879,17 +3957,24 @@ def main() -> int:
             b, by = bound_ms(R * distinct(idm) * isz + R * d * isz + 4 * d * 8, 2 * R * 4 * d)
         print(f"  (m) {label} R={R} N={N} {dt}: accum_apply, cache's geometry {geo[0]} rows "
               f"a block: {ms_t:.4f} ms (device {dms_t}); static 64: {ms_s:.4f} ms (device "
-              f"{dms_s}); accum_apply_scalar bm=256 bd=8: {ms_c:.4f} ms (device {dms_c}); "
+              f"{dms_s}); accum_apply_scalar at {KN.scalar_rows(R, 4, d)} rows a block: "
+              f"{ms_c:.4f} ms (device {dms_c}); "
               f"torch.sparse.mm: {lms} ms (device {ldms}); plain {pms:.4f} ms; bound "
               f"{b:.5f} ms by {by}")
         print(f"  (m) scalar / autotuned on the card: {ms_c / ms_t:.2f}× (device "
               f"{(dms_c or 0) / max(dms_t or 1e-9, 1e-9):.2f}×); interpret-mode Pallas on a "
               f"CPU (BENCH_kernels.json, a CPU figure): {cpu_ratio:.2f}×")
+        if lms is not None:
+            print(f"  (m) accum_apply_scalar / torch.sparse.mm(Sᵀ, Kᵀ): {ms_c / lms:.3f}× "
+                  f"(device {(dms_c or math.nan) / (ldms or math.nan):.3f}×)")
+        sb = gather_bounds(f"(m) accum_apply_scalar {label} {dt}", dms_c, b, idm, R, isz,
+                           R * d * isz + 4 * d * 8)
         scalar_rows[f"{label} {str(dt).removeprefix('torch.')}"] = dict(
             shape=f"R={R} N={N} d={d} m=4", max_abs_err=es, max_rel_err=rs, ms=ms_c,
             device_ms=dms_c, plain_ms=pms, bound_ms=b, bound_by=by, library_ms=lms,
-            library_device_ms=ldms, accum_apply_geometry=geo[0], accum_apply_ms=ms_t,
-            accum_apply_static_ms=ms_s, ratio_scalar_over_autotuned=ms_c / ms_t)
+            library_device_ms=ldms, rows_a_block=KN.scalar_rows(R, 4, d),
+            accum_apply_geometry=geo[0], accum_apply_ms=ms_t, accum_apply_static_ms=ms_s,
+            ratio_scalar_over_autotuned=ms_c / ms_t, **sb)
         del Kt, tuned, scalar, plain
     phase_launches = {"m": counts()}
     launches["ks"] = counts()
@@ -3901,8 +3986,9 @@ def main() -> int:
         check(cnt == 3, f"{name} launched {cnt} times on path (m), 3 expected")
     anchor = scalar_rows.pop("anchor float32")
     rows["accum_apply_scalar"] = dict(
-        replaces=f"{TPU}:529", library="torch.sparse.mm(Sᵀ, Kᵀ)ᵀ", geometry_by="fixed",
-        geometry="bm=256 bd=8", dense=scalar_rows, **anchor)
+        replaces=f"{TPU}:529", library="torch.sparse.mm(Sᵀ, Kᵀ)ᵀ",
+        geometry_by="a fixed rule on R (csrc scalar_rows)",
+        geometry=f"{anchor['rows_a_block']} rows a block", dense=scalar_rows, **anchor)
 
     # a corrupt cache file: the static table, recorded in the health report
     bad = tmp / "corrupt.json"
@@ -4233,6 +4319,7 @@ def main() -> int:
                     device_ms_by_path=on_paths(f.__name__), **rows[f.__name__])
                for f in ALL]
     tmpdir.cleanup()
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     if FAILURES:
         print(f"\nchip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

@@ -2,8 +2,8 @@
 """Time the column gather and ``matfree_apply`` of ``accum_apply.cu``
 against an earlier version of that source, in one process on one NVIDIA GPU.
 
-    python3 scripts/bench_gather.py [--parent REV_OR_FILE] [--matfree] [--diagnose]
-                                    [--rotate]
+    python3 scripts/bench_gather.py [--parent REV_OR_FILE] [--scalar | --matfree]
+                                    [--diagnose] [--rotate]
 
 The parent is ``git show REV:src/repro_torch/kernels/accum_apply/csrc/
 accum_apply.cu`` (default ``HEAD``), or the file of that name where one
@@ -23,6 +23,19 @@ a block, and each ``--diagnose`` variant's.
 Then the card's rate for random sectors (``chip_smoke.sector_rates`` on the
 float32 K: 1024 and 64 sampled columns a row, unsorted, sorted, whole
 sectors and 64-byte segments) and each shape's sector bound.
+
+``--scalar``: ``accum_apply_scalar`` at path (m)'s shapes (``SCALAR_SHAPES``,
+m = 4, d = 64: a normal K at the anchor R = 4096, N = 8192 in float32 and
+the sketches, drawn as ``chip_smoke.py`` draws them, and the Gaussian K
+above at n = 32768 in float32 and bfloat16), the parent's entry (where it is the seed loop, at
+bm = 256, bd = 8) against the change's wrapper and entry: every output
+the parent's bits, and so row 9's launch at each of ``SCALAR_ROWS`` rows a
+block (``accum_apply``'s at that ``bm``: the same column gather) (exit 1
+otherwise); times both C entries (a launch each, the output allocated,
+as the parent's wrapper called it) parent, change, change, parent, then
+the change's wrapper, each rows count and ``torch.sparse.mm(Sᵀ, Kᵀ)``,
+beside the byte bound, the sector bound and the sector probe's random
+rate.
 
 ``--matfree``: ``matfree_apply`` at n = 2^21, d = 64, p = 3 (Gaussian at
 m = 4 and 16, float32 and bfloat16; Laplacian at m = 4), the change held
@@ -58,6 +71,7 @@ from __future__ import annotations
 import concurrent.futures
 import ctypes
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -95,6 +109,18 @@ ROWS = (8, 16, 32, 64, 128, 256)
 # sketches a call cycles through under --rotate
 ROTATE = 12
 MATFREE_DIAGNOSTICS = ("rb4", "rb16", "no_sfu", "no_store")
+# the C entry points of accum_apply.cu
+ENTRIES = ("repro_matfree_apply", "repro_accum_apply_left", "repro_accum_sketch_both",
+           "repro_accum_apply", "repro_accum_step_slab", "repro_accum_grow_slabs",
+           "repro_accum_apply_scalar")
+# how a source whose accum_apply_scalar is the seed loop declares its entry
+PARENT_SCALAR_BLOCKS = "int N, int m, int d, int bm, int bd, int is_bf16, void* stream"
+# --scalar: path (m)'s shapes, (label, R, N, dtype), m = 4 at d = 64, and the
+# rows a block row 9's launch is bit-checked and timed at (through
+# accum_apply, which launches the same column gather)
+SCALAR_SHAPES = (("anchor", 4096, 8192, "float32"), ("dense", N_DENSE, N_DENSE, "float32"),
+                 ("dense", N_DENSE, N_DENSE, "bfloat16"))
+SCALAR_ROWS = (8, 16, 32, 64, 128)
 
 
 def parent_source(arg: str) -> Path:
@@ -123,6 +149,22 @@ def variant(source: Path, name: str) -> Path:
     return out
 
 
+def parent_lib(path: Path, change, text: str):
+    """The parent's library at ``path``, each entry point typed as the
+    change's of the same name where the parent has it; the parent's
+    ``repro_accum_apply_scalar`` as its source declares it (the seed loop's
+    (…, bm, bd, is_bf16, stream) before the column gather took it over)."""
+    lib = ctypes.CDLL(str(path))
+    for name in ENTRIES:
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = getattr(change, name).argtypes, ctypes.c_int
+    if PARENT_SCALAR_BLOCKS in text:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.repro_accum_apply_scalar.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
+    return lib
+
+
 def same_bits(x, y) -> bool:
     import torch
 
@@ -144,6 +186,7 @@ def main(argv: list[str]) -> int:
 
     parent_arg = argv[argv.index("--parent") + 1] if "--parent" in argv else "HEAD"
     matfree, diagnose, rotate = "--matfree" in argv, "--diagnose" in argv, "--rotate" in argv
+    scalar = "--scalar" in argv
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -156,10 +199,15 @@ def main(argv: list[str]) -> int:
     with concurrent.futures.ThreadPoolExecutor() as pool:
         list(pool.map(lambda kv: KN.build_source(kv[1], infos[kv[0]]), sources.items()))
     libs = {}
-    for name, src in sources.items():
-        KN.SOURCE = src
-        KN._lib.cache_clear()
-        libs[name] = KN._lib()
+    # the change and its variants bound by kernel.py, then the parent, whose
+    # entries may differ from the change's (parent_lib)
+    for name, src in sorted(sources.items(), key=lambda kv: kv[0] == "parent"):
+        if name == "parent":
+            libs[name] = parent_lib(KN.library_path(src), libs["change"], src.read_text())
+        else:
+            KN.SOURCE = src
+            KN._lib.cache_clear()
+            libs[name] = KN._lib()
         print(f"{name} ({src.name}): nvcc {infos[name]['seconds']:.1f} s")
         lines = infos[name]["ptxas"].splitlines()
         for i, line in enumerate(lines):
@@ -199,7 +247,74 @@ def main(argv: list[str]) -> int:
                 print(f"  {label} {name}: {ms:.4f} ms (device {dms}); of the bounds: {share}")
 
     g = torch.Generator(device=dev).manual_seed(3)
-    if matfree:
+    if scalar:
+        # path (m)'s draws: a normal K at the anchor, then its sketch, then the
+        # dense K's sketch, from one generator seeded 10
+        gm = torch.Generator(device=dev).manual_seed(10)
+        Ks = {"anchor": torch.randn((4096, 8192), generator=gm, device=dev)}
+        sks = {"anchor": make_accum_sketch(gm, 8192, D, 4, device=dev)}
+        X = torch.rand((N_DENSE, 3), generator=g, device=dev)
+        Ks["dense"] = KernelOperator(X, "gaussian", 0.5).dense()
+        sks["dense"] = make_accum_sketch(gm, N_DENSE, D, 4, device=dev)
+        rates = CS.sector_rates(torch, KN, Ks["dense"])
+        times["sector_rates"] = rates
+        old = PARENT_SCALAR_BLOCKS in sources["parent"].read_text()
+        for label, R, N, dname in SCALAR_SHAPES:
+            dt = getattr(torch, dname)
+            Kt = Ks[label].to(dt)
+            idx, cf = sks[label].indices.contiguous(), sks[label].coef.float().contiguous()
+
+            def entry_run(who, Kt=Kt, idx=idx, cf=cf, R=R, N=N):
+                """One launch through ``who``'s C entry, as a caller of the
+                seed loop's called it (at bm = 256, bd = 8 where it takes them)."""
+                out = torch.empty((R, D), dtype=Kt.dtype, device=dev)
+                geo = (256, 8) if who == "parent" and old else ()
+                err = libs[who].repro_accum_apply_scalar(
+                    Kt.data_ptr(), idx.data_ptr(), cf.data_ptr(), out.data_ptr(), R, N, 4, D,
+                    *geo, int(Kt.dtype == torch.bfloat16),
+                    torch.cuda.current_stream(dev).cuda_stream)
+                if err:
+                    raise RuntimeError(f"{who}'s accum_apply_scalar failed with CUDA error {err}")
+                return out
+
+            def rows_run(rows, Kt=Kt, idx=idx, cf=cf):
+                # row 9's launch at ``rows`` rows a block: accum_apply's, the
+                # same column gather
+                return KN.accum_apply(Kt, idx, cf, bm=rows)
+
+            def change_run(Kt=Kt, idx=idx, cf=cf):
+                return KN.accum_apply_scalar(Kt, idx, cf, bm=256, bd=8)
+
+            name = f"accum_apply_scalar {label} R={R} N={N} {dname}"
+            use("change")
+            was = entry_run("parent")
+            ok = (same_bits(change_run(), was) and same_bits(entry_run("change"), was)
+                  and all(same_bits(rows_run(r), was) for r in SCALAR_ROWS))
+            plain = ref.accum_apply_ref(Kt, idx, cf)
+            ea, er, okp = CS.close(change_run(), plain, 1e-5 if dt == torch.float32 else 2e-2)
+            failed |= not (ok and okp)
+            print(f"  [{'ok' if ok and okp else 'FAIL'}] {name}: every output the parent's "
+                  f"bits, at {SCALAR_ROWS} rows a block too; against the plain version max "
+                  f"abs {ea:.3e} (/max {er:.3e}); the rule's rows a block "
+                  f"{KN.scalar_rows(R, 4, D)}")
+            St = CS.sketch_csr(torch, idx, cf, N, transposed=True).to(dt)
+            lib_err = (torch.sparse.mm(St, Kt.T).T.float() - plain.float()).abs().max().item()
+            print(f"  {name}: torch.sparse.mm(Sᵀ, Kᵀ)ᵀ vs plain max abs {lib_err:.3e}")
+            isz = Kt.element_size()
+            other = R * D * isz + 4 * D * 8
+            sb = CS.sector_bound(idx, R, isz, other, rates)
+            bounds = {"bytes": (R * int(torch.unique(idx).numel()) * isz + other)
+                      / CS.HBM_BYTES_PER_S * 1e3,
+                      "sectors": sb["sector_bound_ms"], "sector rate": sb["sector_rate_ms"]}
+            print(f"  {name}: {sb['sectors_a_row']} sectors a row; bounds (ms) "
+                  + ", ".join(f"{k} {v:.5f}" for k, v in bounds.items()))
+            fns = {"parent": lambda f=entry_run: f("parent"),
+                   "change": lambda f=entry_run: f("change"), "change's wrapper": change_run}
+            fns.update({f"change rows {r}": lambda r=r, f=rows_run: f(r) for r in SCALAR_ROWS})
+            fns["torch.sparse.mm(Sᵀ, Kᵀ)"] = lambda St=St, Kt=Kt: torch.sparse.mm(St, Kt.T)
+            rounds(name, fns, bounds)
+            del Kt, plain, was, St
+    elif matfree:
         X = torch.rand((N_OP, 3), generator=g, device=dev)
         for kernel, m, dt in (("gaussian", 4, torch.float32), ("gaussian", 16, torch.float32),
                               ("laplacian", 4, torch.float32), ("gaussian", 4, torch.bfloat16)):
@@ -263,11 +378,12 @@ def main(argv: list[str]) -> int:
                         Xt, L, cf, kernel=kernel, bandwidth=bw, bm=bm))
                     times.setdefault(label, {})[f"rows {bm}"] = dict(ms=ms, device_ms=dms)
                     print(f"  {label} change at {bm} rows a block: {ms:.4f} ms (device {dms}); "
-                          f"{bounds['bytes'] / dms:.1%} of the byte bound")
+                          f"{bounds['bytes'] / (dms or math.nan):.1%} of the byte bound")
                 out = torch.empty((N_OP, D), device=dev)
                 ms, dms = CS.timed(torch, out.zero_)
                 print(f"  writing C alone (torch zero_ of {N_OP}×{D} float32): {ms:.4f} ms "
-                      f"(device {dms}); {bounds['bytes'] / dms:.1%} of the byte bound")
+                      f"(device {dms}); {bounds['bytes'] / (dms or math.nan):.1%} of the byte "
+                      "bound")
                 times["write floor"] = dict(ms=ms, device_ms=dms)
             del got, was, L
     else:

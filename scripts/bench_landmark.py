@@ -44,6 +44,7 @@ last line is a JSON object of every time.  Without a CUDA device it exits 2.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -110,8 +111,6 @@ DECODE_PLANS = [(8, 8), (8, 16), (8, 32), (8, 64), (4, 16), (4, 32), (4, 64), (2
 
 def decode(torch, smi: str, plans: bool) -> int:
     """The decode sweep at the decode shape (see the module's docstring)."""
-    import math
-
     import chip_smoke as CS
     from repro_torch.kernels.landmark_attention import kernel as LK
     from repro_torch.kernels.landmark_attention import ref as LR
@@ -138,10 +137,11 @@ def decode(torch, smi: str, plans: bool) -> int:
         failed |= not ok
         ms, dms = CS.timed(torch, lambda: LK.landmark_attention(q, kt, M, bias))
         ops = CS.device_ops_per_call(torch, lambda: LK.landmark_attention(q, kt, M, bias))
+        dev_ms = dms or math.nan   # None where the profiler dropped records
         print(f"  [{'ok' if ok else 'FAIL'}] {name}: max abs {ea:.3e} (/max|plain| {er:.3e}); "
-              f"{ms:.4f} ms (device {dms}); {bound / dms:.1%} of the {bound:.5f} ms byte bound, "
-              f"{nbytes / dms / 1e9:.3f} TB/s; {ops:g} device operations a call")
-        results[name] = dict(ms=ms, device_ms=dms, max_abs_err=ea, share_of_bound=bound / dms,
+              f"{ms:.4f} ms (device {dms}); {bound / dev_ms:.1%} of the {bound:.5f} ms byte bound, "
+              f"{nbytes / dev_ms / 1e9:.3f} TB/s; {ops:g} device operations a call")
+        results[name] = dict(ms=ms, device_ms=dms, max_abs_err=ea, share_of_bound=bound / dev_ms,
                              device_ops_per_call=ops)
 
     run("kernel.plan " + str(LK.plan(P, G, L, D, D, torch.float32)))
@@ -157,7 +157,8 @@ def decode(torch, smi: str, plans: bool) -> int:
                       lambda: torch.nn.functional.scaled_dot_product_attention(
                           q, kt, M, attn_mask=bias[:, None, :]))):
         ms, dms = CS.timed(torch, fn)
-        print(f"  {name}: {ms:.4f} ms (device {dms}); {bound / dms:.1%} of the byte bound")
+        print(f"  {name}: {ms:.4f} ms (device {dms}); {bound / (dms or math.nan):.1%} of the byte "
+              "bound")
         results[name] = dict(ms=ms, device_ms=dms)
     print(smi)
     print(json.dumps(results))

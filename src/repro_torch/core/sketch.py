@@ -70,6 +70,12 @@ class AccumSketch:
             return self.coef_
         return _compute_coef(self.indices, self.signs, self.probs)
 
+    def with_coef(self) -> "AccumSketch":
+        """Copy with ``coef_`` populated (the sketch itself if already cached)."""
+        if self.coef_ is not None:
+            return self
+        return dataclasses.replace(self, coef_=self.coef)
+
     def truncated(self, m: int) -> "AccumSketch":
         """The sketch restricted to its first ``m`` sub-sampling matrices; the
         cached coefficients renormalize by sqrt(M/m)."""

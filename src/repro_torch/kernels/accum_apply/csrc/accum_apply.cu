@@ -1,8 +1,10 @@
 // Accumulation-sketch application kernels for Hopper (sm_90a).
 //
-// Seven kernels replace the TPU's Pallas kernels in
-// src/repro/kernels/accum_apply/kernel.py (AA below).  The sketch S has m
-// non-zeros per column, given by idx/coef of shape (m, d):
+// Seven entry points replace the TPU's seven Pallas kernels in
+// src/repro/kernels/accum_apply/kernel.py (AA below), through five CUDA
+// kernels: matfree_apply, accum_apply_left and the three bodies of the
+// column gather, which the other five entries share (launch_gather).  The
+// sketch S has m non-zeros per column, given by idx/coef of shape (m, d):
 //
 //   S[:, j] = Σ_i coef[i, j] · e_{idx[i, j]}
 //
@@ -19,7 +21,8 @@
 // Launch geometry: the rows a block takes are a runtime argument of
 // matfree_apply and of the column gather (kernel.py's ``bm``), chosen by the
 // measured autotune cache (autotune.py); 0 gives the column gather's body
-// its own default (launch_gather).  It changes the grid, the sorted
+// its own default (launch_gather), and accum_apply_scalar's come from a
+// fixed rule on R (scalar_rows).  It changes the grid, the sorted
 // gather's value tile and the register gather's warps a block, never a
 // thread's registers: each output element keeps its one owner and its order
 // of summation, so every row count gives the same bits.
@@ -36,6 +39,12 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// K is read once by every gather: evict-first loads (ld.global.cs)
+template <typename T>
+__device__ __forceinline__ float load_evict_first(const T* p) {
+  return to_f32(__ldcs(p));
+}
 
 // ex2.approx and rsqrt.approx on the SFU, with denormal results flushed to 0
 __device__ __forceinline__ float ex2_approx(float x) {
@@ -317,11 +326,12 @@ cudaError_t launch_left(const void* M, const int* idx, const float* coef, float*
 // its m values in order (the same `acc += coef·v` chain as the row-at-a-time
 // kernel below) and writes, so the reads of Cin and the writes are
 // coalesced.  The order of the loads changes no sum: both kernels give the
-// same bits.  An index outside [0, N) sorts last and gives NaN without a
-// load.  Below GATHER_SORTED_MIN the register gather below takes the
-// shapes it holds (the sort bought 1% at m·d = 128 and cost 7% at 64 over
-// the row-at-a-time kernel: B = 2 and 1 at d = 64, float32, on the H100);
-// the row-at-a-time kernel takes the rest, and every m·d above
+// same bits.  K is read by evict-first loads, as in the other two bodies.
+// An index outside [0, N) sorts last and gives NaN without a load.  Below
+// GATHER_SORTED_MIN the register gather below takes the shapes it holds
+// (the sort bought 1% at m·d = 128 and cost 7% at 64 over the row-at-a-time
+// kernel: B = 2 and 1 at d = 64, float32, on the H100); the row-at-a-time
+// kernel takes the rest, and every m·d above
 // GATHER_SORTED_MAX (idx and coef staged in shared memory where they fit
 // 48 KB).  One pass over K, no reduction across threads or blocks.
 // --------------------------------------------------------------------------
@@ -395,7 +405,7 @@ __global__ void __launch_bounds__(GATHER_THREADS) sketch_gather_kernel(
           const unsigned long long key = skey[s];
           const unsigned col = (unsigned)(key >> 32);
           dst[u] = row * md + (int)(unsigned)key;
-          v[u] = col < (unsigned)N ? to_f32(Kt[(size_t)row * N + col])
+          v[u] = col < (unsigned)N ? load_evict_first(Kt + (size_t)row * N + col)
                                    : __int_as_float(0x7fc00000);
         }
         row += dr;
@@ -459,9 +469,9 @@ constexpr int GATHER_REGS_M = 4;     // … and terms a column
 constexpr int GATHER_REGS_ROWS = 8;  // its default rows a block
 constexpr int GATHER_ROWS = 64;      // the sorted and row-at-a-time kernels' default
 
-template <typename T>
-__device__ __forceinline__ float load_evict_first(const T* p) {
-  return to_f32(__ldcs(p));
+// whether launch_gather takes the register gather for (m, d)
+__host__ inline bool gather_regs(int m, int d) {
+  return m * d < GATHER_SORTED_MIN && d <= GATHER_REGS_D && m <= GATHER_REGS_M;
 }
 
 template <typename T, typename TO, int MI>
@@ -526,7 +536,8 @@ cudaError_t launch_regs(const void* K, const int* idx, const float* coef, const 
 // The row-at-a-time gather, for m·d above GATHER_SORTED_MAX and for the
 // shapes below GATHER_SORTED_MIN that the register gather does not hold
 // (more than GATHER_REGS_D columns or GATHER_REGS_M terms): a warp takes
-// one row at a time with its lanes along j and reads its m terms in order.
+// one row at a time with its lanes along j and reads its m terms in order,
+// by evict-first loads.
 template <typename T, typename TO>
 __global__ void sketch_gather_rows_kernel(const T* __restrict__ K, const int* __restrict__ idx,
                                           const float* __restrict__ coef, const float* Cin,
@@ -556,7 +567,8 @@ __global__ void sketch_gather_rows_kernel(const T* __restrict__ K, const int* __
       float acc = 0.0f;
       for (int i = 0; i < m; ++i) {
         const int col = I[i * d + j];
-        const float v = (unsigned)col < (unsigned)N ? to_f32(Kr[col]) : __int_as_float(0x7fc00000);
+        const float v =
+            (unsigned)col < (unsigned)N ? load_evict_first(Kr + col) : __int_as_float(0x7fc00000);
         acc += F[i * d + j] * v;
       }
       const size_t o = (size_t)r * d + j;
@@ -572,7 +584,7 @@ cudaError_t launch_gather(const void* K, const int* idx, const float* coef, cons
                           float a, float* C32, TO* Cout, int R, int N, int m, int d, int rows,
                           cudaStream_t stream) {
   const int md = m * d;
-  const bool regs = md < GATHER_SORTED_MIN && d <= GATHER_REGS_D && m <= GATHER_REGS_M;
+  const bool regs = gather_regs(m, d);
   if (rows <= 0) rows = regs ? GATHER_REGS_ROWS : GATHER_ROWS;
   if (regs)
     return m == 1 ? launch_regs<T, TO, 1>(K, idx, coef, Cin, a, C32, Cout, R, N, m, d, rows, stream)
@@ -675,47 +687,54 @@ cudaError_t launch_grow(const void* K, const int* idx, const float* coef, const 
 
 // --------------------------------------------------------------------------
 // accum_apply_scalar — replaces AA:529 `accum_apply_scalar` (body AA:514
-// `_scalar_kernel`): the seed's scalar per-column gather loop, kept as the
-// naive baseline of the K·S microbenchmark (benchmarks/kernel_bench.py).
+// `_scalar_kernel`, the seed's scalar loop, which the reference keeps as
+// the baseline of its K·S benchmark, benchmarks/kernel_bench.py).
 //
 // out[r, j] = Σ_{i<m} coef[i, j] · K[r, idx[i, j]]   (float32 sum, out in K's type)
 //
-// Grid (R/bm, d/bd), as the TPU kernel's.  A thread takes one of the
-// block's bm rows at a time and loops over the block's bd columns and the m
-// sub-sketches in order, reading one K[r, idx[i, j]] at a time, with idx
-// and coef read from global memory at every step.  Deliberately untuned: no
-// shared-memory staging, no autotune, no vectorisation.  Neighbouring
-// threads read one column of neighbouring rows, N elements apart, so each
-// read is its own 32-byte sector, as in the gather above.  Bound on the
-// H100: bytes, the R·m·d sampled entries of K and the R·d outputs.
+// Bound on the H100: sectors, as the column gather's (R·m·d sampled entries
+// of K in separate 32-byte sectors, R·d outputs).
+//
+// Design: the column gather (launch_gather), whose bodies sum each output
+// in the seed loop's order (float32, i = 0..m-1, an `acc += coef·v` chain
+// from 0, NaN for an index outside [0, N)), so they give its bits.  The
+// seed's loop (a thread a row, idx and coef read from global memory at every
+// step, a thread's stores d·4 bytes from its neighbour's) is gone.  The
+// bodies load the sketch's pairs once a block (sorted in shared memory, or
+// in registers), put every load of a row in flight before its sums, read K
+// by evict-first loads and store each row's outputs coalesced.  The
+// reference's (bm, bd) tile a TPU grid that has no counterpart: kernel.py
+// checks them as the reference asserts them, and they move nothing here.
+//
+// Rows a block: a fixed rule on R, as the reference has no autotune for
+// this kernel.  GATHER_ROWS (64) halved down to 8 while the grid would hold
+// fewer than SCALAR_BLOCKS blocks, two an SM of the H100's 132: 64 at the
+// dense R = 32768 (512 blocks), 8 at the anchor R = 4096 (512 blocks, where
+// 64 rows made 64).  Measured on the H100 at m = 4, d = 64, device ms at 8,
+// 16, 32, 64 and 128 rows a block (the same launch through
+// repro_accum_apply; scripts/bench_gather.py --scalar, PERF.md §6): the
+// anchor 0.0266, 0.0271, 0.0278, 0.0315, 0.0430; the dense K 0.2415,
+// 0.2476, 0.2521, 0.2478, 0.2452 in float32 and 0.2113, 0.2143, 0.2169,
+// 0.2125, 0.2105 in bfloat16, against the seed loop's 0.3667 and 0.3055.
+// At the dense K no count gains more than 3%, and 64 spreads the sort a
+// block does over more rows where m·d is larger (up to 1024 keys).
+// The register gather keeps its own default (8 rows, a warp each).  The
+// rows move no bit (the header).
 // --------------------------------------------------------------------------
-template <typename T>
-__global__ void accum_apply_scalar_kernel(const T* __restrict__ K, const int* __restrict__ idx,
-                                          const float* __restrict__ coef, T* __restrict__ out,
-                                          int N, int m, int d, int bm, int bd) {
-  const int r0 = blockIdx.x * bm, j0 = blockIdx.y * bd;
-  for (int r = r0 + threadIdx.x; r < r0 + bm; r += blockDim.x) {
-    const T* Kr = K + (size_t)r * N;
-    for (int jj = 0; jj < bd; ++jj) {
-      const int j = j0 + jj;
-      float acc = 0.0f;
-      for (int i = 0; i < m; ++i) {
-        const int col = idx[i * d + j];
-        const float v = (unsigned)col < (unsigned)N ? to_f32(Kr[col]) : __int_as_float(0x7fc00000);
-        acc += coef[i * d + j] * v;
-      }
-      store(out + (size_t)r * d + j, acc);
-    }
-  }
+constexpr int SCALAR_BLOCKS = 264;
+
+__host__ inline int scalar_rows(int R, int m, int d) {
+  if (gather_regs(m, d)) return GATHER_REGS_ROWS;
+  int rows = GATHER_ROWS;
+  while (rows > 8 && (R + rows - 1) / rows < SCALAR_BLOCKS) rows >>= 1;
+  return rows;
 }
 
 template <typename T>
 cudaError_t launch_scalar(const void* K, const int* idx, const float* coef, void* out, int R,
-                          int N, int m, int d, int bm, int bd, cudaStream_t stream) {
-  const dim3 grid(R / bm, d / bd);
-  accum_apply_scalar_kernel<T><<<grid, bm < 256 ? bm : 256, 0, stream>>>(
-      static_cast<const T*>(K), idx, coef, static_cast<T*>(out), N, m, d, bm, bd);
-  return cudaGetLastError();
+                          int N, int m, int d, cudaStream_t stream) {
+  return launch_gather<T, T>(K, idx, coef, nullptr, 0.0f, nullptr, static_cast<T*>(out), R, N,
+                             m, d, scalar_rows(R, m, d), stream);
 }
 
 }  // namespace
@@ -772,13 +791,13 @@ int repro_accum_grow_slabs(const void* K, const int* idx, const float* coef, con
                                       s);
 }
 
-// bm divides R and bd divides d (kernel.py checks both, as the reference
-// asserts them).
 int repro_accum_apply_scalar(const void* K, const int* idx, const float* coef, void* out, int R,
-                             int N, int m, int d, int bm, int bd, int is_bf16, void* stream) {
+                             int N, int m, int d, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_scalar<__nv_bfloat16>(K, idx, coef, out, R, N, m, d, bm, bd, s)
-                 : launch_scalar<float>(K, idx, coef, out, R, N, m, d, bm, bd, s);
+  return is_bf16 ? launch_scalar<__nv_bfloat16>(K, idx, coef, out, R, N, m, d, s)
+                 : launch_scalar<float>(K, idx, coef, out, R, N, m, d, s);
 }
+
+int repro_accum_apply_scalar_rows(int R, int m, int d) { return scalar_rows(R, m, d); }
 
 }  // extern "C"

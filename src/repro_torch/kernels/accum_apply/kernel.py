@@ -1,4 +1,4 @@
-"""Build, bind and launch the seven CUDA kernels in ``csrc/accum_apply.cu``.
+"""Build, bind and launch the seven entry points of ``csrc/accum_apply.cu``.
 
 The source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 plain C-ABI shared library under ``<repo>/build/repro_torch/`` (the path
@@ -19,7 +19,8 @@ geometry the autotune cache chooses (``ops``), which changes neither a
 thread's registers nor any sum's order.  The default is the static
 geometry, ``autotune.STATIC_TABLE`` (``matfree_rows(n)`` for
 ``matfree_apply``); its 0 for the column gather leaves the rows to the body
-the launch takes (csrc ``launch_gather``).
+the launch takes (csrc ``launch_gather``).  ``accum_apply_scalar`` takes no
+rows: csrc ``scalar_rows`` sets them from R (``scalar_rows`` here asks it).
 """
 from __future__ import annotations
 
@@ -122,11 +123,12 @@ def _lib() -> ctypes.CDLL:
     lib.repro_accum_apply.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
     lib.repro_accum_step_slab.argtypes = [P, P, P, P, F, P, I, I, I, I, I, P]
     lib.repro_accum_grow_slabs.argtypes = [P, P, P, P, F, P, P, P, P, I, I, I, I, I, I, P]
-    lib.repro_accum_apply_scalar.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
+    lib.repro_accum_apply_scalar.argtypes = [P, P, P, P, I, I, I, I, I, P]
+    lib.repro_accum_apply_scalar_rows.argtypes = [I, I, I]
     for fn in (lib.repro_matfree_apply, lib.repro_accum_apply_left,
                lib.repro_accum_sketch_both, lib.repro_accum_apply,
                lib.repro_accum_step_slab, lib.repro_accum_grow_slabs,
-               lib.repro_accum_apply_scalar):
+               lib.repro_accum_apply_scalar, lib.repro_accum_apply_scalar_rows):
         fn.restype = ctypes.c_int
     return lib
 
@@ -439,30 +441,34 @@ def accum_grow_slabs(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor,
 
 def accum_apply_scalar(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, *,
                        bm: int = 256, bd: int = 8) -> torch.Tensor:
-    """K S on the card by the seed's scalar per-column gather loop: K (R, N)
-    float32 or bfloat16, idx (m, d) int32, coef (m, d) float32.  Returns
-    (R, d) in K's dtype, summed in float32.  Grid (R/bm, d/bd) after
-    clipping bm to R and bd to d; shapes they do not divide raise
-    ``ValueError``, as the reference asserts (no padding).  The naive
-    baseline of ``accum_apply``: no autotune.  Replaces AA:529."""
+    """K S on the card for K (R, N) float32 or bfloat16, idx (m, d) int32,
+    coef (m, d) float32.  Returns (R, d) in K's dtype, summed in float32 in
+    the seed loop's order.  ``bm`` and ``bd`` are clipped to (R, d) and
+    checked as the reference asserts them (``ValueError`` where they do not
+    divide); the launch is the column gather's, at rows a block from a fixed
+    rule on R (``scalar_rows``), with no autotune.  Replaces AA:529."""
     dev = _cuda_device(K)
     R, N = K.shape
     m, d = idx.shape
     _check("K", K, (R, N), _TYPES, dev)
     _check("idx", idx, (m, d), (torch.int32,), dev)
     _check("coef", coef, (m, d), (torch.float32,), dev)
-    bm, bd = scalar_blocks(R, d, bm, bd)
-    if d // bd > 65535:
-        raise ValueError(f"d/bd = {d // bd} exceeds the grid's 65535 y-blocks")
+    scalar_blocks(R, d, bm, bd)
     out = torch.empty((R, d), dtype=K.dtype, device=dev)
     _int32(R=R, N=N, md=m * d)
     with torch.cuda.device(dev), autotune.launch_range(accum_apply_scalar):
         err = _lib().repro_accum_apply_scalar(
             K.data_ptr(), idx.data_ptr(), coef.data_ptr(), out.data_ptr(), R, N,
-            m, d, bm, bd, int(K.dtype == torch.bfloat16), _stream(dev))
+            m, d, int(K.dtype == torch.bfloat16), _stream(dev))
     autotune.count_launch(accum_apply_scalar)
     _raise_on(err, "accum_apply_scalar")
     return out
+
+
+def scalar_rows(R: int, m: int, d: int) -> int:
+    """Rows a block of ``accum_apply_scalar`` at (R, m, d): csrc
+    ``scalar_rows``, asked through the built library."""
+    return _lib().repro_accum_apply_scalar_rows(R, m, d)
 
 
 def scalar_blocks(R: int, d: int, bm: int, bd: int) -> tuple[int, int]:

@@ -176,10 +176,11 @@ def sketch_right_kernel(K: torch.Tensor, sk: AccumSketch) -> torch.Tensor:
 @routed
 def accum_apply_scalar(K: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor,
                        *, bm: int = 256, bd: int = 8) -> torch.Tensor:
-    """K S (R, d) by the seed's scalar per-column gather loop, the naive
-    baseline of ``sketch_right_kernel``: no autotune, no padding — (bm, bd)
-    clipped to (R, d) must divide them (``ValueError`` otherwise, where the
-    reference asserts).  Returns K's dtype, summed in float32."""
+    """K S (R, d), the reference's baseline of ``sketch_right_kernel``: no
+    autotune, no padding — (bm, bd) clipped to (R, d) must divide them
+    (``ValueError`` otherwise, where the reference asserts).  Returns K's
+    dtype, summed in float32 in the seed loop's order; on the card the
+    column gather at rows a block from R (``kernel.accum_apply_scalar``)."""
     K_.scalar_blocks(K.shape[0], idx.shape[1], bm, bd)
     coef32 = coef.float().contiguous()
     if _on_cuda(K):

@@ -283,13 +283,20 @@ def test_cuda_engine_routes_match_plain(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("R,N,d,m,bm,bd", [(4096, 8192, 64, 4, 256, 8),
-                                           (256, 512, 32, 4, 32, 8),
-                                           (64, 128, 16, 3, 256, 16),
-                                           (1000, 999, 24, 2, 8, 24)])
-def test_cuda_scalar_kernel_matches_plain(cuda_device, R, N, d, m, bm, bd, dtype):
+@pytest.mark.parametrize("R,N,d,m,bm,bd,bm2", [(4096, 8192, 64, 4, 256, 8, 128),
+                                               (256, 512, 32, 4, 32, 8, 256),
+                                               (64, 128, 16, 3, 256, 16, 32),
+                                               (1000, 999, 24, 2, 8, 24, 40),
+                                               (512, 2048, 128, 6, 256, 8, 64),
+                                               (300, 700, 96, 2, 100, 8, 300),
+                                               (128, 3000, 64, 20, 64, 16, 32)])
+def test_cuda_scalar_kernel_matches_plain(cuda_device, R, N, d, m, bm, bd, bm2, dtype):
     """accum_apply_scalar against its plain version (the reference's tol:
-    1e-5 float32, 2e-2 bfloat16), and against accum_apply."""
+    1e-5 float32, 2e-2 bfloat16), and the bits of accum_apply, whose column
+    gather it launches: the register gather (m·d < 256, d ≤ 64, m ≤ 4), the
+    sorted one (256 ≤ m·d ≤ 1024: the anchor, and m·d = 768) and the
+    row-at-a-time one (d = 96 at m·d = 192; m·d = 1280).  Its rows a block
+    come from R, so another (bm, bd) gives the same bits."""
     g = torch.Generator().manual_seed(R + d)
     K = torch.randn((R, N), generator=g).to(cuda_device, dtype)
     idx = torch.randint(0, N, (m, d), generator=g, dtype=torch.int32).to(cuda_device)
@@ -299,7 +306,9 @@ def test_cuda_scalar_kernel_matches_plain(cuda_device, R, N, d, m, bm, bd, dtype
     assert out.dtype == dtype and KT.accum_apply_scalar.launches == before + 1
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     _close(out, RT.accum_apply_ref(K, idx, coef), tol)
-    _close(out, KT.accum_apply(K, idx, coef), tol)
+    assert torch.equal(out, KT.accum_apply(K, idx, coef))
+    assert torch.equal(out, KT.accum_apply_scalar(K, idx, coef, bm=bm2, bd=d))
+    assert KT.scalar_rows(R, m, d) in (8, 16, 32, 64)
     with pytest.raises(ValueError, match="R % bm"):
         KT.accum_apply_scalar(K[:R - 1], idx, coef, bm=min(bm, R - 2), bd=bd)
     torch.cuda.synchronize()

@@ -2,6 +2,8 @@
 draw is carried across with ``interop.sketch_from_numpy``; the port's own
 draws (a torch.Generator, not threefry) are checked for their law's
 invariants and for reproducibility."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -51,6 +53,58 @@ def test_jax_draw_across(n, d, m, nonuniform):
         np.testing.assert_allclose(tt.dense().numpy(), np.asarray(tj.dense()),
                                    rtol=1e-6, atol=1e-7)
 
+
+
+@pytest.mark.parametrize("nonuniform", [False, True])
+@pytest.mark.parametrize("n,d,m", SHAPES)
+def test_with_coef_after_truncation(n, d, m, nonuniform):
+    """``truncated(mm).with_coef().coef_`` of a grown JAX draw carried across
+    is the reference's for every mm, at its tolerance (rtol 1e-5, atol 1e-6,
+    tests/test_sketch_properties.py:92-112): from the reference's cached
+    coefficients (truncated's rescale) and from none (with_coef computes
+    them); a sketch that holds them comes back as itself."""
+    grown = SJ.append_subsample(_jax_draw(n, d, m, nonuniform=nonuniform),
+                                jax.random.fold_in(KEY, n + 8))
+    cached = interop.sketch_from_numpy(np.asarray(grown.indices), np.asarray(grown.signs),
+                                       np.asarray(grown.probs), grown.n,
+                                       np.asarray(grown.coef_), device="cpu")
+    bare = dataclasses.replace(cached, coef_=None)
+    assert bare.with_coef().coef_ is not None and cached.with_coef() is cached
+    for mm in range(1, grown.m + 1):
+        want = np.asarray(grown.truncated(mm).with_coef().coef_)
+        for skt in (cached, bare):
+            tt = skt.truncated(mm).with_coef()
+            assert tt.coef_ is not None and tt.with_coef() is tt
+            np.testing.assert_allclose(tt.coef_.numpy(), want, rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(tt.coef_.numpy(), ST._compute_coef(
+                tt.indices, tt.signs, tt.probs).numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_with_coef_keeps_dtypes(dtype):
+    """The port's twin of the reference's ``_check_dtype_preserved``: signs,
+    probs and coef keep the constructor's dtype through append_subsample,
+    truncated and with_coef, indices stay int32, and each dtype is the
+    reference's for the same constructor chain."""
+    n, d, m = 12, 6, 3
+    tdt = getattr(torch, dtype)
+    skj = SJ.make_accum_sketch(KEY, n, d, m, dtype=jnp.dtype(dtype))
+    trj = SJ.append_subsample(skj, jax.random.fold_in(KEY, 3)).truncated(m)
+    assert str(trj.with_coef().coef.dtype) == dtype
+    for sk in (ST.make_accum_sketch(torch.Generator().manual_seed(1), n, d, m, dtype=tdt,
+                                    device="cpu"),
+               ST.make_accum_sketch_jit(torch.Generator().manual_seed(1), n, d, m,
+                                        dtype=tdt, device="cpu")):
+        for arr in (sk.signs, sk.probs, sk.coef, sk.coef_):
+            assert arr.dtype == tdt, (arr.dtype, tdt)
+        assert sk.indices.dtype == torch.int32
+        grown = ST.append_subsample(sk, torch.Generator().manual_seed(3))
+        tr = grown.truncated(sk.m)
+        for derived in (grown, tr, tr.with_coef(),
+                        dataclasses.replace(tr, coef_=None).with_coef()):
+            for arr in (derived.signs, derived.probs, derived.coef, derived.coef_):
+                assert arr.dtype == tdt, (arr.dtype, tdt)
+            assert derived.indices.dtype == torch.int32
 
 def test_nnz_counts_cancelling_collisions():
     """Two draws of one row with opposite signs cancel: a zero of S."""
