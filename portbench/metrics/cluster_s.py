@@ -1,0 +1,6 @@
+"""``cluster_s``: the measured window's seconds over the clustering jobs it
+completed, one client in a closed loop."""
+
+
+def read(ctx: dict):
+    return ctx["window_s"] / ctx["jobs"] if ctx["jobs"] else None
